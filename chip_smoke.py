@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from `simd_raytracer_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, drives the render path
-(`parse_scene_file` -> `render_frame` -> `save_ppm`) through the kernels at
-full size, and checks the CUDA render against the CPU render of the same
+(`parse_scene_file` -> `render_frame` -> `save_ppm`), diffuse GI, the
+training path (`ops.grad.train_steps`) and march occlusion through the
+kernels at full size, and checks each on CUDA against the CPU on a small
 scene.  Scenes come from `tests/torch_scenes.py` (generated, no files).
 
 Phases, one result line each:
@@ -21,8 +22,26 @@ Phases, one result line each:
   7. where the time of phase 5's headline and default frames goes: one
      frame of each under torch.profiler (device busy time, top device
      kernels), and one headline frame with CUDA events around every sweep
-     kernel call (time per call by kind of ray).
-The last two lines are a JSON object per kernel and {"ok": true, ...}.
+     kernel call (time per call by kind of ray);
+  8. diffuse GI: small renders on the CPU and on CUDA with the same
+     uniforms (gi 1 and 2, split + brute force and roulette + sweep),
+     images within 1e-4; then one timed GI frame of the full scene;
+  9. gradients of a small scene on CUDA against the CPU: losses within
+     1e-5 relative, every gradient within 1e-3 * max|g_cpu| + 1e-6 plus
+     twice the CPU's own float32 error against float64;
+ 10. the fwd+bwd path at full width (bench.py's backward phase): SGD
+     steps of 65,536 rays, timed;
+ 11. northstar: the same at 128 spp with GI, after a finite-difference
+     check of d loss / d light_intensity;
+ 12. refexact (split + march): small renders on the CPU and on CUDA under
+     the sweep, brute force and fast selects, then one timed frame of the
+     full scene;
+ 13. where the time of phase 8's GI frame, one SGD step of phases 10 and
+     11 and phase 12's frame goes, as phase 7.
+Phases 5 and 8-12 each count the kernel launches of their own paths from
+zero and fail if a kernel of the path never launched; the kernel line
+reports their sum.  The last two lines are a JSON object per kernel and
+{"ok": true, ...}.
 Every phase raises on failure, so the script exits non-zero.  It needs a
 CUDA device and exits 1 without one.
 """
@@ -55,6 +74,12 @@ KERNELS = {
                         "(and :205, the streaming variant)"},
 }
 MAX_ERR = {K1: 0, SWEEP: 0}
+# Edge of the square frames of phases 5 (default), 8 and 12, and the ray
+# ids of each SGD step of phases 10 and 11 (bench.py's chunk).
+FRAME = 480
+TRAIN_RAYS = 65536
+# The kernel each select name runs on the card ("fast" is plain torch).
+SELECT_KERNEL = {"jnp": K1, "pallas": K1, "sweep": SWEEP}
 
 
 def report(phase: str, **fields) -> None:
@@ -220,37 +245,58 @@ def phase_sweep(label, scene):
            exact=True, seconds=time.perf_counter() - t0)
 
 
-def phase_small(tmp):
+def render_cpu_vs_cuda(what, scene, cfg, seed):
+    """Render `scene` on the CPU and on CUDA with the same uniforms; raise
+    unless the images agree within 1e-4 and their PPM channels differ by
+    at most 1 on at most 0.1% of channels."""
     import simd_raytracer_tpu_torch as T
     from simd_raytracer_tpu_torch.utils.ppm import image_to_u8
-    from torch_scenes import SeededUniforms, mixed_doc
-    path = os.path.join(tmp, "small.crtscene")
-    with open(path, "w") as f:
-        json.dump(mixed_doc(128, 128, g=64, subdiv=3), f)
-    scene = T.parse_scene_file(path)
-    cfg = T.RenderConfig(samples_per_pixel=2, max_ray_depth=5,
-                         bounce_mode="roulette", intersector="sweep")
+    from torch_scenes import SeededUniforms
     imgs, secs = {}, {}
     for dev in ("cpu", DEV):
+        before = counts()
         t0 = time.perf_counter()
         imgs[dev] = T.render_frame(scene, cfg, device=dev,
-                                   uniforms=lambda c: SeededUniforms(5, c)
+                                   uniforms=lambda c: SeededUniforms(seed, c)
                                    ).cpu()
         secs[dev] = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in counts().items()}
+    if cfg.intersector in SELECT_KERNEL:
+        need_launches(what, launches, SELECT_KERNEL[cfg.intersector])
     a, b = imgs["cpu"], imgs[DEV]
     err = float((a - b).abs().max())
     ua, ub = image_to_u8(a).astype(int), image_to_u8(b).astype(int)
     off = int((ua != ub).sum())
     if not (torch.isfinite(b).all() and err <= 1e-4
             and int(np.abs(ua - ub).max()) <= 1 and off <= 0.001 * ua.size):
-        raise AssertionError(f"CPU and CUDA renders differ: max |d| {err}, "
-                             f"{off} PPM channels differ")
+        raise AssertionError(f"{what}: CPU and CUDA renders differ: max |d| "
+                             f"{err}, {off} PPM channels differ")
+    return dict(max_abs_err=err, ppm_channels_differing=off,
+                cpu_s=secs["cpu"], cuda_s=secs[DEV], cuda_launches=launches)
+
+
+def small_scene(tmp):
+    """The 10,780-triangle mixed scene at 128 x 128, through the file
+    loader."""
+    import simd_raytracer_tpu_torch as T
+    from torch_scenes import mixed_doc
+    path = os.path.join(tmp, "small.crtscene")
+    with open(path, "w") as f:
+        json.dump(mixed_doc(128, 128, g=64, subdiv=3), f)
+    return T.parse_scene_file(path)
+
+
+def phase_small(tmp):
+    import simd_raytracer_tpu_torch as T
+    scene = small_scene(tmp)
+    cfg = T.RenderConfig(samples_per_pixel=2, max_ray_depth=5,
+                         bounce_mode="roulette", intersector="sweep")
     report("4 small render cpu vs cuda",
-           triangles=int(scene.tri_valid.sum()), max_abs_err=err,
-           ppm_channels_differing=off, cpu_s=secs["cpu"], cuda_s=secs[DEV])
+           triangles=int(scene.tri_valid.sum()),
+           **render_cpu_vs_cuda("phase 4", scene, cfg, 5))
 
 
-def render_timed(label, scene, cfg, accel=None, frames=3):
+def render_timed(label, scene, cfg, accel=None, frames=3, phase="5"):
     """One warm frame, then `frames` timed ones; checks the image."""
     import simd_raytracer_tpu_torch as T
     from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
@@ -272,7 +318,7 @@ def render_timed(label, scene, cfg, accel=None, frames=3):
                 SWEEP: intersect_sweep.LAUNCHES - before[1]}
     rays = scene.height * scene.width * cfg.samples_per_pixel
     mean = sum(times[1:]) / frames
-    report(f"5 {label}", width=scene.width, height=scene.height,
+    report(f"{phase} {label}", width=scene.width, height=scene.height,
            spp=cfg.samples_per_pixel, depth=cfg.max_ray_depth,
            bounce_mode=cfg.bounce_mode, intersector=cfg.intersector,
            warm_s=times[0], frame_s=times[1:], primary_rays_per_s=rays / mean,
@@ -296,7 +342,7 @@ def phase_full(tmp):
     accel = build_sweep_for_scene(scene).to(DEV)
     bitmap = build_scene(**bitmap_scene_kwargs(256, 256)).to(DEV)
 
-    default = scene.replace(height=480, width=480)
+    default = scene.replace(height=FRAME, width=FRAME)
     intersect_brute.LAUNCHES = 0
     intersect_sweep.LAUNCHES = 0
     img, l_head, s_head = render_timed("headline roulette+sweep", scene,
@@ -368,17 +414,16 @@ def phase_timed(scene, cfg, accel):
     return ms
 
 
-def device_profile(scene, cfg, accel):
-    """One frame under torch.profiler -> (wall s, device busy s, device
-    events, top kernels).  Busy time is the union of the intervals of
-    every device event (kernels, copies, sets)."""
-    import simd_raytracer_tpu_torch as T
+def device_profile(run):
+    """One call of `run` (a frame or an SGD step) under torch.profiler ->
+    (wall s, device busy s, device events, top kernels).  Busy time is the
+    union of the intervals of every device event (kernels, copies, sets)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        T.render_frame(scene, cfg, device=DEV, accel=accel)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
@@ -401,11 +446,10 @@ def device_profile(scene, cfg, accel):
         {"kernel": k[:80], "calls": n, "s": t * 1e-9} for k, (n, t) in top]
 
 
-def sweep_calls(scene, cfg, accel):
-    """One frame with CUDA events around every sweep kernel call, summed
-    by kind of ray: primary (culled closest hit), secondary (closest hit)
-    and shadow (any-hit)."""
-    import simd_raytracer_tpu_torch as T
+def sweep_calls(run):
+    """One call of `run` with CUDA events around every sweep kernel call,
+    summed by kind of ray: primary (culled closest hit), secondary
+    (closest hit) and shadow (any-hit)."""
     from simd_raytracer_tpu_torch.ops import intersect_sweep
     calls = []
     kernel = intersect_sweep.sweep_select
@@ -423,7 +467,7 @@ def sweep_calls(scene, cfg, accel):
 
     intersect_sweep.sweep_select = timed
     try:
-        T.render_frame(scene, cfg, device=DEV, accel=accel)
+        run()
     finally:
         intersect_sweep.sweep_select = kernel
     torch.cuda.synchronize()
@@ -448,19 +492,231 @@ def sweep_calls(scene, cfg, accel):
     return out
 
 
-def phase_profile(frames):
-    """Phase 7: where phase 5's frames spend their time, in this run."""
-    for label, (scene, cfg, accel, frame_s) in frames.items():
-        wall, busy, n_events, top = device_profile(scene, cfg, accel)
+def frame_run(scene, cfg, accel):
+    import simd_raytracer_tpu_torch as T
+    return lambda: T.render_frame(scene, cfg, device=DEV, accel=accel)
+
+
+def phase_profile(phase, runs):
+    """Where the time of earlier phases' frames or SGD steps goes, in this
+    run.  runs: label -> (run, unprofiled seconds of one call, whether it
+    runs the sweep)."""
+    for label, (run, frame_s, sweep) in runs.items():
+        wall, busy, n_events, top = device_profile(run)
         fields = dict(profiled_wall_s=wall, device_busy_s=busy,
                       device_events=n_events,
                       busy_share_of_profiled_frame=busy / wall,
                       unprofiled_frame_s=frame_s,
                       busy_share_of_unprofiled_frame=busy / frame_s,
                       top_device=top)
-        if cfg.intersector == "sweep":
-            fields["sweep_calls"] = sweep_calls(scene, cfg, accel)
-        report(f"7 profile {label}", **fields)
+        if sweep:
+            fields["sweep_calls"] = sweep_calls(run)
+        report(f"{phase} profile {label}", **fields)
+
+
+def counts_reset() -> None:
+    from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
+    intersect_brute.LAUNCHES = 0
+    intersect_sweep.LAUNCHES = 0
+
+
+def counts() -> dict:
+    from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
+    return {K1: intersect_brute.LAUNCHES, SWEEP: intersect_sweep.LAUNCHES}
+
+
+def need_launches(what, launches, *kernels) -> None:
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched ({launches})")
+
+
+def torch_source(seed):
+    """A uniform source drawing on the card from a generator seeded with
+    `seed`: the same seed gives the same estimator."""
+    from simd_raytracer_tpu_torch.ops.render import TorchUniforms
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    return TorchUniforms(gen, DEV, torch.float32)
+
+
+def phase_gi(small, full, accel):
+    import simd_raytracer_tpu_torch as T
+    cases = {"split+jnp": dict(max_ray_depth=3),
+             "roulette+sweep": dict(samples_per_pixel=2, max_ray_depth=5,
+                                    bounce_mode="roulette",
+                                    intersector="sweep")}
+    out = {}
+    for gi in (1, 2):
+        for name, kw in cases.items():
+            cfg = T.RenderConfig(diffuse_reflection_ray_count=gi, **kw)
+            out[f"gi{gi} {name}"] = render_cpu_vs_cuda(
+                f"GI gi={gi} {name}", small, cfg, 20 + gi)
+    report("8 GI small render cpu vs cuda",
+           triangles=int(small.tri_valid.sum()), cases=out)
+    counts_reset()
+    cfg = T.RenderConfig(samples_per_pixel=2, max_ray_depth=5,
+                         diffuse_reflection_ray_count=1,
+                         bounce_mode="roulette", intersector="sweep")
+    frame = full.replace(height=FRAME, width=FRAME)
+    _, _, frame_s = render_timed("GI frame roulette+sweep gi1", frame, cfg,
+                                 accel, frames=1, phase="8")
+    launches = counts()
+    need_launches("GI frame", launches, SWEEP)
+    return launches, (frame_run(frame, cfg, accel), frame_s, True)
+
+
+def interior_ids(scene, cfg, n):
+    """n ray ids from the middle of the frame (bench.py:188-191)."""
+    total = scene.height * scene.width * cfg.samples_per_pixel
+    n = min(total, n)
+    return torch.arange(n, dtype=torch.int32, device=DEV) + (total - n) // 2
+
+
+def phase_grad_small(small):
+    """CUDA against CPU gradients of a float32 render.  The tolerance is
+    1e-3 * max|g_cpu| + 1e-6 + 2 * the CPU's own float32 error (its
+    distance to the float64 gradient of the same render): the gathers'
+    backward sums terms that cancel (refine's 1/det on grazing hits), so a
+    float32 sum in another order, or with atomics, moves by about that
+    error; measured 6.6e-6 on a vertex whose gradient is 6.3e-3."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
+    from simd_raytracer_tpu_torch.ops import grad as G
+    from torch_scenes import SeededUniforms
+    cfg = T.RenderConfig(samples_per_pixel=2, max_ray_depth=5,
+                         diffuse_reflection_ray_count=1,
+                         bounce_mode="roulette", intersector="sweep")
+    ids = interior_ids(small, cfg, 8192)
+    accel = build_sweep_for_scene(small)
+    f64 = small.map(lambda t: t.double() if t.is_floating_point() else t)
+    res = {}
+    for name, scene, dev in (("cpu", small, "cpu"), (DEV, small, DEV),
+                             ("cpu64", f64, "cpu")):
+        params, skeleton = G.split_params(scene.to(dev))
+        t0 = time.perf_counter()
+        res[name] = G.loss_and_grad(
+            params, skeleton, cfg, ids.to(dev),
+            torch.full((len(ids), 3), 0.1, dtype=scene.vertices.dtype,
+                       device=dev), SeededUniforms(9, 0), accel.to(dev))
+        if dev == DEV:
+            torch.cuda.synchronize()
+        res[name] += (time.perf_counter() - t0,)
+    (lc, gc, sc), (lg, gg, sg), (_, g64, _) = (res["cpu"], res[DEV],
+                                              res["cpu64"])
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    errs = {}
+    for k in G.DIFF_PARAM_NAMES:
+        g, c = gg[k].cpu(), gc[k]
+        err = float((g - c).abs().max())
+        scale = float(c.abs().max())
+        f32_err = float((c.double() - g64[k]).abs().max())
+        tol = 1e-3 * scale + 1e-6 + 2 * f32_err
+        errs[k] = {"max_abs_err": err, "max_abs_cpu": scale,
+                   "cpu_f32_err_vs_f64": f32_err, "tol": tol}
+        if not (torch.isfinite(g).all() and err <= tol):
+            raise AssertionError(f"gradient {k}: CUDA vs CPU max |d| {err} "
+                                 f"above {tol}")
+    if not (torch.isfinite(lg) and loss_rel <= 1e-5):
+        raise AssertionError(f"losses differ: {float(lg)} vs {float(lc)}")
+    report("9 gradients cpu vs cuda", rays=len(ids), loss=float(lc),
+           loss_rel_err=loss_rel,
+           tolerance="1e-3*max|g_cpu|+1e-6+2*max|g_cpu-g_cpu_f64|",
+           grads=errs, cpu_s=sc, cuda_s=sg)
+
+
+def phase_train(label, phase, scene, accel, spp, gi, fd):
+    """bench.py's backward phase on the full scene: 65,536 interior ray
+    ids, zero target, `train_steps` of 8 SGD steps once warm and once
+    timed; with `fd`, first the finite-difference check of
+    d loss / d light_intensity (bench.py:195-218)."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.ops import grad as G
+    cfg = T.RenderConfig(samples_per_pixel=spp, max_ray_depth=5,
+                         chunk_size=TRAIN_RAYS,
+                         diffuse_reflection_ray_count=gi,
+                         bounce_mode="roulette", intersector="sweep")
+    ids = interior_ids(scene, cfg, cfg.chunk_size)
+    target = torch.zeros((len(ids), 3), device=DEV)
+    params, skeleton = G.split_params(scene)
+    fields = {}
+    counts_reset()
+    with torch.no_grad():
+        loss0 = float(G.pixel_loss(params, skeleton, cfg, ids, target,
+                                   torch_source(0), accel))
+    _, grads = G.loss_and_grad(params, skeleton, cfg, ids, target,
+                                    torch_source(0), accel)
+    for k in ("vertices", "mat_albedo", "light_intensity"):
+        if not (torch.isfinite(grads[k]).all()
+                and float(grads[k].abs().max()) > 0):
+            raise AssertionError(f"{label}: gradient of {k} is zero or "
+                                 f"not finite")
+    if fd:
+        eps_fd = 0.05 * float(params["light_intensity"].abs().max()) or 1.0
+
+        def loss_at(di):
+            p = dict(params, light_intensity=params["light_intensity"] + di)
+            with torch.no_grad():
+                return float(G.pixel_loss(p, skeleton, cfg, ids, target,
+                                          torch_source(0), accel))
+
+        fd_val = (loss_at(eps_fd) - loss_at(-eps_fd)) / (2 * eps_fd)
+        an = float(grads["light_intensity"].sum())
+        rel = abs(fd_val - an) / max(abs(fd_val), abs(an), 1e-12)
+        fields.update(fd_step=eps_fd, fd=fd_val, analytic=an, fd_rel_err=rel)
+        if not rel < 0.05:
+            raise AssertionError(f"{label}: FD mismatch, analytic {an} vs "
+                                 f"FD {fd_val}")
+    times = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = G.train_steps(
+            params, skeleton, cfg, ids, target,
+            lambda i, run=run: torch_source(100 * (run + 1) + i),
+            n_steps=8, accel=accel)
+        losses = losses.cpu()
+        times.append(time.perf_counter() - t0)
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"{label}: non-finite losses {losses}")
+    with torch.no_grad():
+        loss1 = float(G.pixel_loss(params, skeleton, cfg, ids, target,
+                                   torch_source(0), accel))
+    launches = counts()
+    need_launches(label, launches, SWEEP)
+    if not loss1 < loss0:
+        raise AssertionError(f"{label}: loss did not fall: {loss0} -> {loss1}")
+    per_step = times[1] / 8
+    report(f"{phase} {label}", rays=len(ids), spp=spp, gi=gi, depth=5,
+           steps_per_call=8, warm_s=times[0], timed_s=times[1],
+           s_per_step=per_step, fwd_bwd_rays_per_s=len(ids) / per_step,
+           loss_before=loss0, loss_after_16_steps=loss1,
+           losses_timed=losses.tolist(), launches=launches, **fields)
+
+    def one_step():
+        G.train_step(params, skeleton, cfg, ids, target, torch_source(7),
+                     accel=accel)
+
+    return launches, (one_step, per_step, True)
+
+
+def phase_refexact(small, full, accel):
+    import simd_raytracer_tpu_torch as T
+    out = {}
+    for isect in ("sweep", "jnp", "fast"):
+        cfg = T.RenderConfig(max_ray_depth=5, occlusion_mode="march",
+                             intersector=isect)
+        out[isect] = render_cpu_vs_cuda(f"refexact {isect}", small, cfg, 30)
+    report("12 refexact small render cpu vs cuda",
+           triangles=int(small.tri_valid.sum()), cases=out)
+    counts_reset()
+    frame = full.replace(height=FRAME, width=FRAME)
+    cfg = T.RenderConfig(occlusion_mode="march", intersector="sweep")
+    _, _, frame_s = render_timed("refexact frame split+march+sweep", frame,
+                                 cfg, accel, frames=1, phase="12")
+    launches = counts()
+    need_launches("refexact frame", launches, SWEEP)
+    return launches, (frame_run(frame, cfg, accel), frame_s, True)
 
 
 def main() -> int:
@@ -486,8 +742,29 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_small(tmp)
         frames, launches = phase_full(tmp)
+        small = small_scene(tmp)
     ms = phase_timed(*frames["headline"][:3])
-    phase_profile(frames)
+    phase_profile("7", {
+        label: (frame_run(scene, cfg, accel), frame_s,
+                cfg.intersector == "sweep")
+        for label, (scene, cfg, accel, frame_s) in frames.items()})
+
+    full, _, accel, _ = frames["headline"]
+    runs = {}
+    more, runs["GI frame"] = phase_gi(small, full, accel)
+    paths = [more]
+    phase_grad_small(small)
+    for label, phase, spp, gi in (("fwd+bwd", "10", 4, 0),
+                                  ("northstar", "11", 128, 1)):
+        more, runs[f"{label} step"] = phase_train(
+            label, phase, full, accel, spp=spp, gi=gi, fd=gi > 0)
+        paths.append(more)
+    more, runs["refexact frame"] = phase_refexact(small, full, accel)
+    paths.append(more)
+    phase_profile("13", runs)
+    for more in paths:
+        for k in launches:
+            launches[k] += more[k]
 
     KERNELS[K1].update(launches=launches[K1], max_abs_err=MAX_ERR[K1],
                        ms=ms["k1"], plain_ms=ms["k1_plain"])

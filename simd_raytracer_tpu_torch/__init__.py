@@ -1,12 +1,13 @@
-"""simd_raytracer_tpu_torch - the forward render path of simd_raytracer_tpu
-in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+"""simd_raytracer_tpu_torch - simd_raytracer_tpu's render and training
+paths in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 `.crtscene` loading, the flat scene model, camera rays, textures, the
-brute-force and block-sparse sweep selects, fast-occlusion Whitted shading
-and the chunked wavefront render loop, held against the JAX package of the
-same module paths and names.  On CUDA tensors the selects run the kernels
-in `csrc/` (built with nvcc at first use, see kernels.py); on CPU tensors
-their plain torch versions.
+brute-force, block-sparse sweep and division-free "fast" selects, Whitted
+shading with diffuse GI and fast or march occlusion, the chunked wavefront
+render loop, and gradients and SGD steps (`ops.grad`), held against the
+JAX package of the same module paths and names.  On CUDA tensors the
+brute-force and sweep selects run the kernels in `csrc/` (built with nvcc
+at first use, see kernels.py); on CPU tensors their plain torch versions.
 """
 
 from .config import DEFAULT_CONFIG, RenderConfig

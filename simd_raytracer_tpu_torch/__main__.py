@@ -17,6 +17,8 @@ def main(argv=None) -> int:
     ap.add_argument("-o", "--output", default="image.ppm")
     ap.add_argument("--spp", type=int, default=1)
     ap.add_argument("--max-depth", type=int, default=5)
+    ap.add_argument("--gi-rays", type=int, default=0,
+                    help="diffuse_reflection_ray_count")
     ap.add_argument("--fov", type=float, default=90.0)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--chunk", type=int, default=16384)
@@ -24,10 +26,13 @@ def main(argv=None) -> int:
                     help="override the scene's width")
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--intersector", default="jnp",
-                    choices=["jnp", "pallas", "sweep"],
+                    choices=["jnp", "fast", "pallas", "sweep"],
                     help="jnp and pallas both run the brute-force select")
     ap.add_argument("--bounce-mode", default="split",
                     choices=["split", "roulette"])
+    ap.add_argument("--occlusion", default="fast", choices=["fast", "march"],
+                    help="shadow query: march re-origins through glass hop "
+                         "by hop (render.hpp:110-131)")
     ap.add_argument("--device", default="cpu",
                     help="torch device, e.g. cpu or cuda")
     args = ap.parse_args(argv)
@@ -43,8 +48,10 @@ def main(argv=None) -> int:
                               height=args.height or scene.height)
     cfg = RenderConfig(
         samples_per_pixel=args.spp, max_ray_depth=args.max_depth,
-        fov_degrees=args.fov, rng_seed=args.seed, chunk_size=args.chunk,
-        intersector=args.intersector, bounce_mode=args.bounce_mode)
+        diffuse_reflection_ray_count=args.gi_rays, fov_degrees=args.fov,
+        rng_seed=args.seed, chunk_size=args.chunk,
+        intersector=args.intersector, bounce_mode=args.bounce_mode,
+        occlusion_mode=args.occlusion)
 
     t0 = time.perf_counter()
     img = render_frame(scene, cfg, device=args.device)

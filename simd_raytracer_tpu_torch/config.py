@@ -33,12 +33,13 @@ class RenderConfig:
     # Primary (pixel, sample) rays per chunk of the bounce loop.
     chunk_size: int = 16384
     # Shadow rays: "fast" is one any-hit query over the non-transmissive
-    # triangles; "march" (not ported yet) re-origins through glass.
+    # triangles; "march" re-origins hop by hop through glass.
     occlusion_mode: str = "fast"
     max_shadow_march: int = 8
     # Select backend.  "jnp" and "pallas" both run the brute-force select
     # (the hand-written CUDA kernel on a GPU), "sweep" the block-sparse
-    # slice sweep.  "fast", "mxu" and "kdtree" are not ported yet.
+    # slice sweep, "fast" the division-free bilinear select (plain torch).
+    # "mxu" and "kdtree" are not ported.
     intersector: str = "jnp"
     # "split" follows the reference's full recursion tree; "roulette"
     # keeps one stochastically chosen child per ray.

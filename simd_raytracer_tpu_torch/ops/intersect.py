@@ -173,7 +173,8 @@ def make_select_fn(intersector: str, accel=None,
     "jnp" and "pallas" both resolve to the brute-force select, which runs
     the CUDA kernel on a GPU and its plain version on the CPU, bound to
     `geom`'s packed triangles when given; "sweep" binds the SweepData
-    given as `accel`."""
+    given as `accel`; "fast" is the division-free bilinear select, plain
+    torch on every device (its JAX counterpart is jnp code, no kernel)."""
     if intersector in ("jnp", "pallas"):
         from .intersect_brute import mt_select_brute
         if geom is None:
@@ -186,8 +187,8 @@ def make_select_fn(intersector: str, accel=None,
         from .intersect_sweep import make_sweep_select
         return make_sweep_select(accel)
     if intersector == "fast":
-        raise NotImplementedError(
-            "intersector='fast' is not ported yet (ROADMAP A10)")
+        from .intersect_fast import mt_select_fast
+        return mt_select_fast
     if intersector == "kdtree":
         raise NotImplementedError(
             "intersector='kdtree' is not ported yet (ROADMAP A11)")

@@ -10,8 +10,9 @@ exactly with `nonzero`; dead rays contribute nothing, so this changes cost,
 not values.
 
 Randomness comes from an injectable source (see `TorchUniforms`): the spp
-jitter (r0, 2) and each roulette bounce's coin (n,) are drawn at the full
-wavefront width and indexed by slot, so compaction cannot change them.
+jitter (r0, 2), each roulette bounce's coin (n,) and each bounce's diffuse
+GI uniforms (n, gi, 2) are drawn at the full wavefront width and indexed
+by slot, so compaction cannot change them.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ TILE_BLOCK = 32
 
 class TorchUniforms:
     """Uniforms for a render, drawn from one torch.Generator on the
-    render's device.  An injected source has the same two methods."""
+    render's device.  An injected source has the same three methods."""
 
     def __init__(self, generator: torch.Generator, device, dtype):
         self.generator = generator
@@ -51,15 +52,14 @@ class TorchUniforms:
         return torch.rand((n,), generator=self.generator,
                           device=self.device, dtype=self.dtype)
 
+    def gi(self, depth: int, n: int, count: int) -> torch.Tensor:
+        """(n, count, 2) diffuse GI uniforms of bounce `depth`."""
+        return torch.rand((n, count, 2), generator=self.generator,
+                          device=self.device, dtype=self.dtype)
+
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for configurations not ported yet."""
-    if cfg.diffuse_reflection_ray_count > 0:
-        raise NotImplementedError(
-            "diffuse GI rays are not ported yet (ROADMAP A7)")
-    if cfg.occlusion_mode != "fast":
-        raise NotImplementedError(
-            "occlusion_mode='march' is not ported yet (ROADMAP A10)")
     if cfg.intersector != "sweep":
         make_select_fn(cfg.intersector)   # raises for the unported ones
 
@@ -76,7 +76,8 @@ def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
     """Render one chunk of global (pixel, sample) ray ids -> (R0, 3) colors.
 
     Ids >= H*W*spp are padding and contribute zero.  `uniforms` has
-    `jitter(n)` and `coin(depth, n)` (TorchUniforms or an injected source).
+    `jitter(n)`, `coin(depth, n)` and `gi(depth, n, count)` (TorchUniforms
+    or an injected source).
     """
     check_supported(cfg)
     r0 = ray_ids.shape[0]
@@ -103,14 +104,18 @@ def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
     miss_bg = torch.ones(r0, dtype=torch.bool, device=dev)
     accum = torch.zeros((r0, 3), dtype=dtype, device=dev)
     bg = scene.background
+    gi_count = cfg.diffuse_reflection_ray_count
 
     for depth in range(cfg.max_ray_depth + 1):
         last = depth == cfg.max_ray_depth
         n_cur = weight.shape[0]
-        coin = None
+        coin = rnd_gi = None
         if cfg.bounce_mode == "roulette" and not last:
             coin = torch.as_tensor(uniforms.coin(depth, n_cur), dtype=dtype,
                                    device=dev)
+        if gi_count > 0 and not last:
+            rnd_gi = torch.as_tensor(uniforms.gi(depth, n_cur, gi_count),
+                                     dtype=dtype, device=dev)
         alive = (weight > 0.0).nonzero()[:, 0]
         if alive.numel() == 0:
             break
@@ -125,7 +130,8 @@ def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
         else:
             shade_c, (co, cd, cw, cbg) = shade(
                 scene, geom, hit, d_c, w_c, cfg, accel,
-                rnd_coin=None if coin is None else coin[alive])
+                rnd_coin=None if coin is None else coin[alive],
+                rnd_gi=None if rnd_gi is None else rnd_gi[alive])
             contrib = contrib + shade_c
         accum = accum + _scatter_rows(n_cur, alive, contrib).reshape(
             r0, -1, 3).sum(dim=1)

@@ -1,11 +1,10 @@
-"""Wavefront shading: the reference's recursive Whitted shader
+"""Wavefront shading: the reference's recursive Whitted+GI shader
 (render/render.hpp:133-308) as one branchless bounce step.
 
 Every material's output is `direct + sum_i w_i * color(child_i)`, so each
 ray carries a throughput `weight` and a `miss_is_bg` flag; a hit emits its
 direct term at once and spawns up to K children with scaled weights.
-Counterpart of `simd_raytracer_tpu.ops.shade` for fast occlusion and no
-diffuse GI rays.
+Counterpart of `simd_raytracer_tpu.ops.shade`.
 """
 
 from __future__ import annotations
@@ -18,9 +17,9 @@ import torch
 from ..config import RenderConfig
 from ..models.scene import (MAT_CONSTANT, MAT_DIFFUSE, MAT_REFLECTIVE,
                             MAT_REFRACTIVE, MAT_TEXTURE, Geometry, Scene,
-                            dot3, safe_normalize)
+                            cross3, dot3, safe_normalize)
 from ..models.textures import sample_texture
-from .intersect import HitRecord, make_select_fn
+from .intersect import HitRecord, make_select_fn, mt_refine
 
 FOUR_PI = 4.0 * math.pi
 
@@ -28,19 +27,65 @@ FOUR_PI = 4.0 * math.pi
 def occluded(o: torch.Tensor, d: torch.Tensor, max_t: torch.Tensor,
              scene: Scene, geom: Geometry, cfg: RenderConfig,
              accel=None) -> torch.Tensor:
-    """Batched is_occluded (render.hpp:110-131), fast mode: one any-hit
-    query over the non-transmissive triangles with the inclusive window
-    t <= max_t.  o, d (N, 3); max_t (N,).  No gradients flow."""
-    if cfg.occlusion_mode != "fast":
-        raise NotImplementedError(
-            "occlusion_mode='march' is not ported yet (ROADMAP A10)")
+    """Batched is_occluded (render.hpp:110-131).  o, d (N, 3); max_t (N,).
+    No gradients flow: visibility is piecewise constant.
+
+    "fast": one any-hit query over the non-transmissive triangles with the
+    inclusive window t <= max_t.  "march": two any-hit probes, over the
+    solid and over the glass triangles, decide every ray that crosses no
+    glass inside its window; the rays that do cross glass march hop by hop
+    through it (`_march`)."""
     select = make_select_fn(cfg.intersector, accel, geom)
-    mask = geom.tri_valid & ~geom.tri_transmissive
+    solid = geom.tri_valid & ~geom.tri_transmissive
     with torch.no_grad():
-        _, hit = select(o.detach(), d.detach(), geom.v0, geom.e1, geom.e2,
-                        cfg.epsilon, False, mask, t_max=max_t.detach(),
-                        any_hit=True)
-    return hit
+        o, d, max_t = o.detach(), d.detach(), max_t.detach()
+        _, occ = select(o, d, geom.v0, geom.e1, geom.e2, cfg.epsilon, False,
+                        solid, t_max=max_t, any_hit=True)
+        if cfg.occlusion_mode == "fast":
+            return occ
+        _, crossed = select(o, d, geom.v0, geom.e1, geom.e2, cfg.epsilon,
+                            False, geom.tri_valid & geom.tri_transmissive,
+                            t_max=max_t, any_hit=True)
+        rows = crossed.nonzero()[:, 0]
+        if rows.numel():
+            occ = occ.index_put((rows,), _march(
+                select, o[rows], d[rows], max_t[rows], geom, cfg))
+    return occ
+
+
+def _march(select, o, d, max_t, geom: Geometry, cfg: RenderConfig):
+    """The reference's re-origining shadow march (render.hpp:110-131) for
+    rays whose window crosses glass -> (N,) bool.
+
+    Each hop is a closest-hit select inside the remaining window, then the
+    winner's refined t: a solid winner occludes, a transmissive one moves
+    the origin past it by shadow_bias and shrinks the window, at most
+    max(1, max_shadow_march) hops.  Rays leave the hop set once decided
+    (exact compaction, values unchanged)."""
+    occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    rows = torch.arange(o.shape[0], device=o.device)
+    for _ in range(max(1, cfg.max_shadow_march)):
+        if rows.numel() == 0:
+            break
+        d_c = d[rows]
+        idx, hit = select(o, d_c, geom.v0, geom.e1, geom.e2, cfg.epsilon,
+                          False, geom.tri_valid, t_max=max_t)
+        gidx = idx.long()
+        t, _, _ = mt_refine(o, d_c, geom.v0[gidx], geom.e1[gidx],
+                            geom.e2[gidx], cfg.epsilon)
+        # A window miss may still carry the closest winner beyond the
+        # window as idx (the brute-force kernel's contract), so the
+        # winner's material is read only inside the window.
+        within = hit & (t <= max_t)
+        transmissive = within & geom.tri_transmissive[gidx]
+        occ[rows[within & ~transmissive]] = True
+        pos = o + t[:, None] * d_c
+        o = pos + cfg.shadow_bias * d_c
+        max_t = max_t - t
+        # Loop guard `while (0 < max_t)` (render.hpp:115).
+        keep = (transmissive & (max_t > 0.0)).nonzero()[:, 0]
+        rows, o, max_t = rows[keep], o[keep], max_t[keep]
+    return occ
 
 
 def direct_light_factor(scene: Scene, geom: Geometry, hit: HitRecord,
@@ -80,19 +125,19 @@ def direct_light_factor(scene: Scene, geom: Geometry, hit: HitRecord,
 def shade(scene: Scene, geom: Geometry, hit: HitRecord,
           d_in: torch.Tensor, weight: torch.Tensor, cfg: RenderConfig,
           accel=None, rnd_coin: Optional[torch.Tensor] = None,
+          rnd_gi: Optional[torch.Tensor] = None,
           ) -> Tuple[torch.Tensor, Tuple]:
     """One bounce of shading for N rays.
 
     hit: their records (mask False = miss); d_in (N, 3) incoming
     directions; weight (N,) throughputs, 0 for dead rays.  rnd_coin (N,)
-    are the roulette uniforms, drawn by the caller per wavefront slot.
+    are the roulette uniforms and rnd_gi (N, gi, 2) the diffuse GI
+    uniforms, drawn by the caller per wavefront slot.
     Returns (contrib (N, 3), children (o (N*K, 3), d (N*K, 3),
     weight (N*K,), miss_bg (N*K,)))."""
-    if cfg.diffuse_reflection_ray_count > 0:
-        raise NotImplementedError(
-            "diffuse GI rays are not ported yet (ROADMAP A7)")
     n = d_in.shape[0]
     k = cfg.child_slots
+    gi_count = cfg.diffuse_reflection_ray_count
     dtype = weight.dtype
 
     live = weight * hit.mask.to(dtype)
@@ -114,7 +159,11 @@ def shade(scene: Scene, geom: Geometry, hit: HitRecord,
             scene, geom, sub, cfg, accel))
     tex_color = sample_texture(scene, hit.tex, hit.u, hit.v, hit.w, hit.uvs)
     surf_color = torch.where(is_texture[:, None], tex_color, hit.albedo)
-    contrib = (live * factor)[:, None] * surf_color
+    # Diffuse divides its total (direct + GI) by gi + 1 (render.hpp:208);
+    # texture does not (render.hpp:211-238).
+    direct_scale = torch.ones_like(weight).masked_fill(
+        is_diffuse, 1.0 / (gi_count + 1))
+    contrib = (live * factor * direct_scale)[:, None] * surf_color
     contrib = contrib + (live * is_constant.to(dtype))[:, None] * hit.albedo
 
     # ---- reflective child (render.hpp:239-250) ---------------------------
@@ -145,10 +194,37 @@ def shade(scene: Scene, geom: Geometry, hit: HitRecord,
     base2 = base * base
     fresnel = 0.5 * (base2 * base2 * base)
 
+    # ---- diffuse GI children (render.hpp:151-182) ------------------------
+    if gi_count > 0:
+        if rnd_gi is None:
+            raise ValueError("diffuse GI shading needs rnd_gi")
+        # The frame is built from the un-normalised incoming direction.
+        right = safe_normalize(cross3(d_in, hit.hit_n))
+        up = hit.hit_n
+        fwd = cross3(right, up)
+        theta = math.pi * rnd_gi[..., 0]
+        phi = 2.0 * math.pi * rnd_gi[..., 1]
+        # (cos t, sin t, 0) rotated about Y by phi (render.hpp:160-170).
+        vx = torch.cos(phi) * torch.cos(theta)
+        vy = torch.sin(theta)
+        vz = torch.sin(phi) * torch.cos(theta)
+        # mat3(right, up, fwd) * v: the rows-dot-vector products
+        # (render.hpp:157, :173; mat3.hpp:53-60).
+        gi_dir = torch.stack([
+            right[:, None, 0] * vx + right[:, None, 1] * vy
+            + right[:, None, 2] * vz,
+            up[:, None, 0] * vx + up[:, None, 1] * vy + up[:, None, 2] * vz,
+            fwd[:, None, 0] * vx + fwd[:, None, 1] * vy
+            + fwd[:, None, 2] * vz,
+        ], dim=-1)                                     # (N, gi, 3)
+        gi_org = (hit.position + cfg.reflection_bias * hit.hit_n)[:, None, :]
+        gi_org = gi_org.expand(gi_dir.shape)
+
     hit_live = hit.mask & (weight > 0.0)
     if cfg.bounce_mode == "roulette":
         # One child per ray, chosen with probability proportional to its
-        # branch weight, so the weight carries over unchanged.
+        # branch weight, so the weight carries over unchanged; a diffuse
+        # ray picks one GI ray uniformly with the same coin.
         if rnd_coin is None:
             raise ValueError("roulette shading needs rnd_coin")
         c_o = hit.position
@@ -171,6 +247,11 @@ def shade(scene: Scene, geom: Geometry, hit: HitRecord,
              weight, False)
         pick(hit_live & is_refractive & ~take_reflect, refr_org, refr_dir,
              weight, False)
+        if gi_count > 0:
+            j = (rnd_coin * gi_count).long().clamp(0, gi_count - 1)
+            rows = torch.arange(n, device=weight.device)
+            pick(hit_live & is_diffuse, gi_org[rows, j], gi_dir[rows, j],
+                 weight * gi_count / (gi_count + 1), False)
         return contrib, (c_o, c_d, c_w, c_bg)
 
     # ---- K child slots (full deterministic split) ------------------------
@@ -187,12 +268,19 @@ def shade(scene: Scene, geom: Geometry, hit: HitRecord,
         if bg_s:
             child_bg[:, slot] = child_bg[:, slot] | sel
 
-    # slot 0: mirror reflection or the refractive reflection ray; slot 1:
-    # the refraction ray, skipped under total internal reflection.
+    # slot 0: mirror reflection, the refractive reflection ray or the first
+    # GI ray; slot 1: the refraction ray, skipped under total internal
+    # reflection; GI ray s in slot s.  For gi = 1 slot 1 of a diffuse ray
+    # stays empty (K = max(2, gi)).
     put(0, hit_live & is_reflective, refl_org, refl_dir, weight, True)
     put(0, hit_live & is_refractive, r_refl_org, r_refl_dir,
         torch.where(tir, weight, weight * fresnel), False)
     put(1, hit_live & is_refractive & ~tir, refr_org, refr_dir,
         weight * (1.0 - fresnel), False)
+    if gi_count > 0:
+        gi_w = weight / (gi_count + 1)
+        for s in range(gi_count):
+            put(s, hit_live & is_diffuse, gi_org[:, s], gi_dir[:, s], gi_w,
+                False)
     return contrib, (child_o.reshape(n * k, 3), child_d.reshape(n * k, 3),
                      child_w.reshape(n * k), child_bg.reshape(n * k))

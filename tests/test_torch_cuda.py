@@ -1,6 +1,6 @@
 """PyTorch port on a CUDA device: each hand-written kernel against its plain
-torch version on the same CUDA tensors, and a small render on CUDA against
-the same render on the CPU.
+torch version on the same CUDA tensors, and small renders, gradients and
+march occlusion on CUDA against the same on the CPU.
 
 Every test carries the `cuda` marker and skips without a card.  On a GPU
 machine, from the repository root:
@@ -17,8 +17,10 @@ import torch
 
 import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
+from simd_raytracer_tpu_torch.ops import grad as G
 from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
+from simd_raytracer_tpu_torch.ops.shade import occluded
 from torch_scenes import SeededUniforms, mixed_doc
 
 pytestmark = pytest.mark.cuda
@@ -96,10 +98,20 @@ def test_sweep_kernel_matches_plain(scene, cull, windowed, any_hit):
         assert torch.equal(got[0][:n][brute[1]], brute[0][brute[1]])
 
 
+ROULETTE_SWEEP = dict(samples_per_pixel=2, bounce_mode="roulette",
+                      intersector="sweep")
+
+
 @pytest.mark.parametrize("kw", [
     dict(),
-    dict(samples_per_pixel=2, bounce_mode="roulette", intersector="sweep"),
-], ids=["split-jnp", "roulette-sweep"])
+    ROULETTE_SWEEP,
+    dict(diffuse_reflection_ray_count=1),
+    dict(diffuse_reflection_ray_count=2),
+    dict(diffuse_reflection_ray_count=1, **ROULETTE_SWEEP),
+    dict(diffuse_reflection_ray_count=2, **ROULETTE_SWEEP),
+    dict(occlusion_mode="march", intersector="sweep"),
+], ids=["split-jnp", "roulette-sweep", "gi1-split-jnp", "gi2-split-jnp",
+        "gi1-roulette-sweep", "gi2-roulette-sweep", "march-split-sweep"])
 def test_render_on_cuda_matches_cpu(scene, kw):
     s, _, _ = scene
     cfg = T.RenderConfig(max_ray_depth=3, chunk_size=1024, **kw)
@@ -140,3 +152,55 @@ def test_wrappers_reject_bad_input(scene):
     args[3] = args[3].double()
     with pytest.raises(ValueError):
         intersect_sweep.sweep_select(*args, EPS, True, False)
+
+
+def test_gradients_on_cuda_match_cpu(scene):
+    """float32, roulette + sweep + GI.  The gathers' backward sums terms
+    that cancel and adds with atomics on CUDA, so gradients agree to
+    1e-3 * max|g| + 1e-6 plus twice the CPU's own float32 error against
+    float64, not bitwise."""
+    s, _, sweep = scene
+    cfg = T.RenderConfig(max_ray_depth=3, samples_per_pixel=2,
+                         bounce_mode="roulette", intersector="sweep",
+                         diffuse_reflection_ray_count=1)
+    n = 48 * 48 * 2
+    ids = torch.arange(n)
+    f64 = s.map(lambda t: t.double() if t.is_floating_point() else t)
+    out = {}
+    for name, sc, dev in ((DEV, s, DEV), ("cpu", s, "cpu"),
+                          ("cpu64", f64, "cpu")):
+        params, skeleton = G.split_params(sc.to(dev))
+        before = intersect_sweep.LAUNCHES
+        out[name] = G.loss_and_grad(
+            params, skeleton, cfg, ids.to(dev),
+            torch.full((n, 3), 0.1, dtype=sc.vertices.dtype, device=dev),
+            SeededUniforms(8, 0), sweep.to(dev))
+        assert (intersect_sweep.LAUNCHES > before) == (dev == DEV)
+    (lg, gg), (lc, gc), (_, g64) = out[DEV], out["cpu"], out["cpu64"]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for k in G.DIFF_PARAM_NAMES:
+        g, c = gg[k].cpu(), gc[k]
+        f32_err = float((c.double() - g64[k]).abs().max())
+        assert torch.isfinite(g).all(), k
+        assert (float((g - c).abs().max())
+                <= 1e-3 * float(c.abs().max()) + 1e-6 + 2 * f32_err), k
+
+
+@pytest.mark.parametrize("intersector", ["jnp", "sweep", "fast"])
+def test_march_on_cuda_matches_cpu(scene, intersector):
+    s, g, sweep = scene
+    rng = np.random.default_rng(5)
+    center = np.array([-2.2, -0.6, -7.0])    # the glass sphere
+    o = center + rng.normal(scale=2.5, size=(2000, 3))
+    o[:, 1] = np.abs(o[:, 1]) + 0.5
+    d = center + rng.normal(scale=0.8, size=(2000, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = rng.uniform(0.5, 12.0, 2000)
+    o, d, tmax = (torch.tensor(x, dtype=torch.float32) for x in (o, d, tmax))
+    cfg = T.RenderConfig(occlusion_mode="march", intersector=intersector)
+    acc = sweep if intersector == "sweep" else None
+    sc = s.to("cpu")
+    cpu = occluded(o, d, tmax, sc, T.derive_geometry(sc), cfg,
+                   None if acc is None else acc.to("cpu"))
+    gpu = occluded(o.to(DEV), d.to(DEV), tmax.to(DEV), s, g, cfg, acc)
+    assert torch.equal(gpu.cpu(), cpu) and 0 < int(cpu.sum()) < len(cpu)

@@ -8,7 +8,6 @@ import subprocess
 import sys
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,11 +16,10 @@ import simd_raytracer_tpu as J
 import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu.ops.render import make_ray_chunks as j_chunks
 from simd_raytracer_tpu_torch.__main__ import main as cli_main
-from simd_raytracer_tpu_torch.models.scene import (SCENE_TENSOR_FIELDS,
-                                                   scene_from_arrays)
 from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
 from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
 from simd_raytracer_tpu_torch.utils.ppm import read_ppm, save_ppm
+from torch_parity import JaxUniforms, port_scene
 from torch_scenes import mixed_doc
 
 torch.set_num_threads(2)
@@ -33,27 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def scenes():
     doc = mixed_doc(48, 48, g=16, subdiv=2)
     js = J.parse_scene_dict(doc)
-    from_arrays = scene_from_arrays(
-        {f: np.asarray(getattr(js, f)) for f in SCENE_TENSOR_FIELDS},
-        height=js.height, width=js.width, bucket_size=js.bucket_size,
-        num_meshes=js.num_meshes)
-    return js, {"arrays": from_arrays, "parsed": T.parse_scene_dict(doc)}
-
-
-class JaxUniforms:
-    """The uniforms JAX's render_chunk draws for one chunk key
-    (ops/render.py:70-92 of the JAX package)."""
-
-    def __init__(self, key):
-        self.key = key
-
-    def jitter(self, n):
-        return np.array(jax.random.uniform(
-            jax.random.fold_in(self.key, 0), (n, 2), jnp.float32))
-
-    def coin(self, depth, n):
-        k = jax.random.fold_in(jax.random.fold_in(self.key, depth + 1), 1)
-        return np.array(jax.random.uniform(k, (n,), jnp.float32))
+    return js, {"arrays": port_scene(js), "parsed": T.parse_scene_dict(doc)}
 
 
 @pytest.mark.parametrize("source", ["arrays", "parsed"])
@@ -104,11 +82,8 @@ def test_cpu_render_launches_no_kernel(scenes):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(intersector="fast"), "A10"),
     (dict(intersector="kdtree"), "A11"),
     (dict(intersector="mxu"), "A14"),
-    (dict(occlusion_mode="march"), "A10"),
-    (dict(diffuse_reflection_ray_count=1), "A7"),
 ])
 def test_unported_configs_raise(scenes, kw, item):
     _, ts = scenes
@@ -116,18 +91,23 @@ def test_unported_configs_raise(scenes, kw, item):
         T.render_frame(ts["parsed"], T.RenderConfig(**kw))
 
 
-def test_cli_writes_the_render(tmp_path, scenes):
+@pytest.mark.parametrize("flags,kw", [
+    (["--intersector", "sweep", "--bounce-mode", "roulette", "--spp", "2"],
+     dict(intersector="sweep", bounce_mode="roulette", samples_per_pixel=2)),
+    (["--gi-rays", "1", "--occlusion", "march", "--intersector", "fast"],
+     dict(diffuse_reflection_ray_count=1, occlusion_mode="march",
+          intersector="fast")),
+], ids=["roulette-sweep", "gi-march-fast"])
+def test_cli_writes_the_render(tmp_path, scenes, flags, kw):
     path = tmp_path / "scene.crtscene"
     path.write_text(json.dumps(mixed_doc(48, 48, g=16, subdiv=2)))
     out = tmp_path / "out.ppm"
     assert cli_main([str(path), "-o", str(out), "--width", "20",
-                     "--height", "12", "--max-depth", "2",
-                     "--intersector", "sweep", "--bounce-mode", "roulette",
-                     "--spp", "2", "--device", "cpu"]) == 0
+                     "--height", "12", "--max-depth", "2", *flags,
+                     "--device", "cpu"]) == 0
     img = T.render_frame(
         T.parse_scene_file(str(path)).replace(width=20, height=12),
-        T.RenderConfig(max_ray_depth=2, intersector="sweep",
-                       bounce_mode="roulette", samples_per_pixel=2))
+        T.RenderConfig(max_ray_depth=2, **kw))
     save_ppm(img, str(tmp_path / "expect.ppm"))
     assert out.read_bytes() == (tmp_path / "expect.ppm").read_bytes()
     assert read_ppm(str(out)).shape == (12, 20, 3)
@@ -136,7 +116,9 @@ def test_cli_writes_the_render(tmp_path, scenes):
 def test_import_pulls_in_no_jax():
     code = ("import sys, simd_raytracer_tpu_torch, "
             "simd_raytracer_tpu_torch.__main__, "
-            "simd_raytracer_tpu_torch.ops.render; "
+            "simd_raytracer_tpu_torch.ops.render, "
+            "simd_raytracer_tpu_torch.ops.grad, "
+            "simd_raytracer_tpu_torch.ops.intersect_fast; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'simd_raytracer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

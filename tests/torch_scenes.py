@@ -185,8 +185,8 @@ def mixed_doc(h: int, w: int, g: int = 181, subdiv: int = 5) -> dict:
 
 class SeededUniforms:
     """A render chunk's uniforms from NumPy, seeded per (seed, chunk,
-    bounce): the `jitter(n)` / `coin(depth, n)` source that the port's
-    `render_chunk` takes, equal on every device.  Pass
+    bounce): the `jitter(n)` / `coin(depth, n)` / `gi(depth, n, count)`
+    source that the port's `render_chunk` takes, equal on every device.  Pass
     `lambda c: SeededUniforms(seed, c)` as `render_frame(uniforms=...)`."""
 
     def __init__(self, seed: int, chunk: int):
@@ -199,6 +199,10 @@ class SeededUniforms:
     def coin(self, depth: int, n: int) -> np.ndarray:
         rng = np.random.default_rng([self.seed, self.chunk, depth + 1])
         return rng.random(n, dtype=np.float32)
+
+    def gi(self, depth: int, n: int, count: int) -> np.ndarray:
+        rng = np.random.default_rng([self.seed, self.chunk, depth + 1, 1])
+        return rng.random((n, count, 2), dtype=np.float32)
 
 
 def bitmap_scene_kwargs(h: int = 256, w: int = 256, seed: int = 0) -> dict:
