@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (simd_raytracer_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py --fill-targets   # phase 6 also times the split's
+                                           # fill targets
 
 Builds the port's CUDA kernels from `simd_raytracer_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, drives the render path
@@ -18,7 +20,15 @@ Phases, one result line each:
   4. a small render on the CPU (plain versions) and on CUDA (kernels), with
      the same uniforms: images within 1e-4;
   5. full-size renders on CUDA, with every kernel launch counted;
-  6. each kernel against its plain version, timed on one 16,384-ray chunk;
+  6. each kernel on the calls that dominate the paths (captured from one
+     headline, GI and default frame: the GI frame's full-reach secondary
+     sweep call, the headline's largest shadow sweep call, the default
+     frame's largest K1 shadow call) and on one 16,384-ray primary chunk:
+     exact against its plain version, timed, with its bound (the pairs a
+     front-to-back walk cannot skip, counted per ray, x 54 float
+     operations over 67 TFLOP/s) and its share of that bound; with
+     --fill-targets, the two largest calls also at fill targets of 16, 32
+     and 64 blocks per SM;
   7. where the time of phase 5's headline and default frames goes: one
      frame of each under torch.profiler (device busy time, top device
      kernels), and one headline frame with CUDA events around every sweep
@@ -40,8 +50,10 @@ Phases, one result line each:
      11 and phase 12's frame goes, as phase 7.
 Phases 5 and 8-12 each count the kernel launches of their own paths from
 zero and fail if a kernel of the path never launched; the kernel line
-reports their sum.  The last two lines are a JSON object per kernel and
-{"ok": true, ...}.
+reports their sum, with phase 6's times and bounds of the sweep's
+full-reach secondary call and K1's primary chunk (named by each entry's
+`call`).  The last three lines
+are the card, a JSON object per kernel and {"ok": true, ...}.
 Every phase raises on failure, so the script exits non-zero.  It needs a
 CUDA device and exits 1 without one.
 """
@@ -163,10 +175,12 @@ def phase_build():
     from simd_raytracer_tpu_torch import kernels
     t0 = time.perf_counter()
     kernels.library()
+    ptxas = [" ".join(line.split()) for line in kernels.build_log.splitlines()
+             if "entry function" in line or "Used" in line or "spill" in line]
     report("1 device+build", device=torch.cuda.get_device_name(0),
            count=torch.cuda.device_count(), torch=torch.__version__,
            cuda=torch.version.cuda, build_s=kernels.build_seconds,
-           load_s=time.perf_counter() - t0)
+           load_s=time.perf_counter() - t0, ptxas=ptxas)
 
 
 def phase_k1(scene, geom):
@@ -377,41 +391,208 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_timed(scene, cfg, accel):
+# Bounds: ~54 float operations per (ray, triangle) pair of the plain
+# version (_mt_merge, ops/intersect_sweep.py), against the H100's published
+# 67 TFLOP/s float32 rate outside the tensor cores and 3.35 TB/s of HBM.
+# The kernels are built without FMA contraction, which halves the rate
+# they can reach; the share is stated against the published peak anyway.
+OPS_PER_PAIR = 54
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(pairs, n_bytes):
+    """(bound ms, bound_by) of `pairs` pair tests moving `n_bytes`."""
+    ops_ms = pairs * OPS_PER_PAIR / PEAK_F32 * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs
+               if torch.is_tensor(x))
+
+
+def capture(run, module, name, kind_of):
+    """Run `run` with module.<name> wrapped; keep, for each kind of call
+    (kind_of(bound arguments) -> (kind, size)), a copy of the arguments of
+    its largest call."""
+    import inspect
+    fn = getattr(module, name)
+    sig = inspect.signature(fn)
+    kept = {}
+
+    def wrapped(*args, **kw):
+        a = sig.bind(*args, **kw)
+        a.apply_defaults()
+        kind, size = kind_of(a.arguments)
+        if size > kept.get(kind, (-1, None))[0]:
+            kept[kind] = (size, {k: v.clone() if torch.is_tensor(v) else v
+                                 for k, v in a.arguments.items()})
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    torch.cuda.synchronize()
+    return {k: v for k, (_, v) in kept.items()}
+
+
+def ray_kind(any_hit, cull):
+    return "shadow" if any_hit else "primary" if cull else "secondary"
+
+
+def time_call(fn, plain, reps):
+    """Kernel ms (two runs of `reps` calls, around one plain run) and the
+    plain version's ms -> (kernel ms, plain ms, kernel runs)."""
+    runs = [event_ms(fn, reps)]
+    plain_ms = event_ms(plain, 1)
+    runs.append(event_ms(fn, reps))
+    return sum(runs) / 2, plain_ms, runs
+
+
+def sweep_call(label, a):
+    """Hold one captured sweep call exactly against the plain version;
+    time it; count its bound per ray from the plain walk's final best t
+    (ops/intersect_sweep.py::sweep_work_pairs)."""
+    from simd_raytracer_tpu_torch.ops import intersect_sweep as S
+    args = tuple(a.values())
+    exact(SWEEP, label, S.sweep_select(*args), S.sweep_select_reference(*args))
+    best_t, _, decided = S.sweep_reference_walk(*args)
+    pairs = S.sweep_work_pairs(a["count"], a["order"], a["tnear"], a["mask"],
+                               a["tmax"], best_t, decided)
+    p, s = a["order"].shape
+    # The count earlier versions took: 512 x 256 pairs for every slice up
+    # to the tile's largest best t, kept beside the per-ray count.
+    steps = torch.arange(s, device=a["tnear"].device)
+    tile_walk = int(((steps[None] < a["count"])
+                     & (a["tnear"] <= best_t.amax(dim=1, keepdim=True))).sum()
+                    ) * 512 * 256
+    ms, plain_ms, runs = time_call(lambda: S.sweep_select(*args),
+                                   lambda: S.sweep_select_reference(*args),
+                                   10)
+    rp = p * 512
+    b_ms, by = bound(pairs, nbytes(*args) + rp * 5)
+    return dict(kind=ray_kind(a["any_hit"], a["cull"]), rays=rp, tiles=p,
+                slices_scheduled_per_tile=float(a["count"].float().mean()),
+                split=S.sweep_split(p, s, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count),
+                ms=ms, runs_ms=runs, plain_ms=plain_ms, pairs_needed=pairs,
+                bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
+                pairs_tile_walk=tile_walk,
+                bound_ms_tile_walk=bound(tile_walk, 0)[0], exact=True)
+
+
+def k1_call(label, a):
+    """The same for one captured brute-force call.  Pairs: every ray
+    against every unmasked triangle; for any-hit, a hit ray needs at least
+    one pair and a miss every one."""
+    from simd_raytracer_tpu_torch.ops import intersect_brute as B
+    fn_args = dict(a)
+    exact(K1, label, B.mt_select_brute(**fn_args),
+          B.mt_select_reference(**{k: v for k, v in fn_args.items()
+                                   if k != "tri_soa"}))
+    hit = B.mt_select_brute(**fn_args)[1]
+    r = a["o"].shape[0]
+    live = (int(a["v0"].shape[0]) if a["tri_mask"] is None
+            else int(a["tri_mask"].sum()))
+    hits = int(hit.sum())
+    pairs = ((r - hits) * live + hits) if a["any_hit"] else r * live
+    ms, plain_ms, runs = time_call(
+        lambda: B.mt_select_brute(**fn_args),
+        lambda: B.mt_select_reference(**{k: v for k, v in fn_args.items()
+                                         if k != "tri_soa"}), 5)
+    # o, d and t_max in, idx and hit out: 33 bytes a ray; the packed
+    # triangle and its mask: 40 bytes a triangle.
+    b_ms, by = bound(pairs, 33 * r + 40 * int(a["v0"].shape[0]))
+    return dict(kind=ray_kind(a["any_hit"], a["cull"]), rays=r,
+                triangles=int(a["v0"].shape[0]), live_triangles=live,
+                split=B.k1_split(r, int(a["v0"].shape[0]),
+                                 torch.cuda.get_device_properties(0)
+                                 .multi_processor_count),
+                ms=ms, runs_ms=runs, plain_ms=plain_ms, pairs_needed=pairs,
+                bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
+                exact=True)
+
+
+def phase_timed(frames, full, accel):
+    """Each kernel on the calls that dominate the paths, captured from one
+    headline, one GI and one default frame, and on one 16,384-ray chunk of
+    the headline's primary rays (the call earlier versions timed)."""
     from simd_raytracer_tpu_torch import derive_geometry
-    from simd_raytracer_tpu_torch.ops.intersect_brute import (
-        mt_select_brute, mt_select_reference)
-    from simd_raytracer_tpu_torch.ops.intersect_sweep import (
-        prepare_sweep, sweep_select, sweep_select_reference)
+    from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
+    from simd_raytracer_tpu_torch.ops.intersect_sweep import prepare_sweep
     from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
     from torch_scenes import SeededUniforms
+    scene, cfg, _, _ = frames["headline"]
+    default, dcfg, _, _ = frames["default"]
+    gi_frame = full.replace(height=FRAME, width=FRAME)
+
+    def sweep_kind(a):
+        return (ray_kind(a["any_hit"], a["cull"]), int(a["count"].sum()))
+
+    def k1_kind(a):
+        return (ray_kind(a["any_hit"], a["cull"]), a["o"].shape[0])
+
+    head = capture(frame_run(scene, cfg, accel), intersect_sweep,
+                   "sweep_select", sweep_kind)
+    gi = capture(frame_run(gi_frame, gi_cfg(), accel), intersect_sweep,
+                 "sweep_select", sweep_kind)
+    dflt = capture(frame_run(default, dcfg, None), intersect_brute,
+                   "mt_select_brute", k1_kind)
+
     geom = derive_geometry(scene)
     chunk = make_ray_chunks(scene, cfg).shape[0] // 2
     o, d = camera_rays(scene, cfg, chunk, SeededUniforms(6, chunk))
-    k1_args = (o, d, geom.v0, geom.e1, geom.e2, EPS, True, geom.tri_valid)
-    sw_args = prepare_sweep(accel, o, d, geom.tri_valid) + (EPS, True, False)
-    # The render path hands K1 the triangles packed once per frame.
-    soa = geom.tri_soa
-    exact(K1, "timed chunk", mt_select_brute(*k1_args, tri_soa=soa),
-          mt_select_reference(*k1_args))
-    exact(SWEEP, "timed chunk", sweep_select(*sw_args),
-          sweep_select_reference(*sw_args))
-    times = {}
-    # Alternate kernel and plain version so drift hits both alike.
-    for name, fn, reps in (("k1",
-                            lambda: mt_select_brute(*k1_args, tri_soa=soa),
-                            10),
-                           ("k1_plain", lambda: mt_select_reference(*k1_args),
-                            2),
-                           ("sweep", lambda: sweep_select(*sw_args), 10),
-                           ("sweep_plain",
-                            lambda: sweep_select_reference(*sw_args), 2)) * 2:
-        times.setdefault(name, []).append(event_ms(fn, reps))
-    ms = {k: sum(v) / len(v) for k, v in times.items()}
-    report("6 kernel vs plain, one chunk", rays=len(o),
-           triangles=int(geom.tri_valid.sum()), slices=accel.num_slices,
-           ms=ms, runs_ms=times)
-    return ms
+    sw = dict(zip(("count", "order", "tnear", "o", "d", "tmax", "tri_soa",
+                   "ids", "mask"), prepare_sweep(accel, o, d, geom.tri_valid)))
+    sw.update(eps=EPS, cull=True, any_hit=False)
+    k1 = dict(o=o, d=d, v0=geom.v0, e1=geom.e1, e2=geom.e2, eps=EPS,
+              cull=True, tri_mask=geom.tri_valid, t_max=None, any_hit=False,
+              tri_soa=geom.tri_soa)
+    calls = {
+        "sweep primary chunk (headline)": sweep_call("primary chunk", sw),
+        "sweep full-reach secondary (GI frame)": sweep_call(
+            "GI secondary", gi["secondary"]),
+        "sweep shadow (headline frame)": sweep_call("headline shadow",
+                                                    head["shadow"]),
+        "K1 primary chunk (headline)": k1_call("K1 primary chunk", k1),
+        "K1 shadow (default frame)": k1_call("default shadow",
+                                             dflt["shadow"]),
+    }
+    more = {}
+    if "--fill-targets" in sys.argv[1:]:
+        more["fill_target_ms"] = fill_targets(gi["secondary"], k1)
+    report("6 kernels on the dominant calls", calls=calls, **more)
+    return calls
+
+
+def fill_targets(sweep_args, k1_args):
+    """With --fill-targets only: the GI secondary sweep call and K1's
+    primary chunk at fill targets of 16, 32 and 64 blocks per SM
+    (kernels.BLOCKS_PER_SM, which sets the split), each exact against the
+    plain version.  The measurement behind BLOCKS_PER_SM (PERF.md)."""
+    from simd_raytracer_tpu_torch import kernels
+    from simd_raytracer_tpu_torch.ops import intersect_brute as B
+    from simd_raytracer_tpu_torch.ops import intersect_sweep as S
+    args = tuple(sweep_args.values())
+    plain = (S.sweep_select_reference(*args), B.mt_select_reference(
+        **{k: v for k, v in k1_args.items() if k != "tri_soa"}))
+    keep, out = kernels.BLOCKS_PER_SM, {}
+    try:
+        for n in (16, 32, 64, 32, 16, 64):
+            kernels.BLOCKS_PER_SM = n
+            exact(SWEEP, f"fill {n}", S.sweep_select(*args), plain[0])
+            exact(K1, f"fill {n}", B.mt_select_brute(**k1_args), plain[1])
+            ms = out.setdefault(n, {"sweep": [], "k1": []})
+            ms["sweep"].append(event_ms(lambda: S.sweep_select(*args), 10))
+            ms["k1"].append(event_ms(lambda: B.mt_select_brute(**k1_args), 5))
+    finally:
+        kernels.BLOCKS_PER_SM = keep
+    return out
 
 
 def device_profile(run):
@@ -540,6 +721,14 @@ def torch_source(seed):
     return TorchUniforms(gen, DEV, torch.float32)
 
 
+def gi_cfg():
+    """The GI frame's config (phases 6, 8 and 13)."""
+    import simd_raytracer_tpu_torch as T
+    return T.RenderConfig(samples_per_pixel=2, max_ray_depth=5,
+                          diffuse_reflection_ray_count=1,
+                          bounce_mode="roulette", intersector="sweep")
+
+
 def phase_gi(small, full, accel):
     import simd_raytracer_tpu_torch as T
     cases = {"split+jnp": dict(max_ray_depth=3),
@@ -555,9 +744,7 @@ def phase_gi(small, full, accel):
     report("8 GI small render cpu vs cuda",
            triangles=int(small.tri_valid.sum()), cases=out)
     counts_reset()
-    cfg = T.RenderConfig(samples_per_pixel=2, max_ray_depth=5,
-                         diffuse_reflection_ray_count=1,
-                         bounce_mode="roulette", intersector="sweep")
+    cfg = gi_cfg()
     frame = full.replace(height=FRAME, width=FRAME)
     _, _, frame_s = render_timed("GI frame roulette+sweep gi1", frame, cfg,
                                  accel, frames=1, phase="8")
@@ -743,7 +930,7 @@ def main() -> int:
         phase_small(tmp)
         frames, launches = phase_full(tmp)
         small = small_scene(tmp)
-    ms = phase_timed(*frames["headline"][:3])
+    calls = phase_timed(frames, frames["headline"][0], frames["headline"][2])
     phase_profile("7", {
         label: (frame_run(scene, cfg, accel), frame_s,
                 cfg.intersector == "sweep")
@@ -751,27 +938,36 @@ def main() -> int:
 
     full, _, accel, _ = frames["headline"]
     runs = {}
-    more, runs["GI frame"] = phase_gi(small, full, accel)
-    paths = [more]
+    paths = {"5 headline+default+bitmap frames": dict(launches)}
+    paths["8 GI frame"], runs["GI frame"] = phase_gi(small, full, accel)
     phase_grad_small(small)
     for label, phase, spp, gi in (("fwd+bwd", "10", 4, 0),
                                   ("northstar", "11", 128, 1)):
-        more, runs[f"{label} step"] = phase_train(
+        paths[f"{phase} {label}"], runs[f"{label} step"] = phase_train(
             label, phase, full, accel, spp=spp, gi=gi, fd=gi > 0)
-        paths.append(more)
-    more, runs["refexact frame"] = phase_refexact(small, full, accel)
-    paths.append(more)
+    paths["12 refexact frame"], runs["refexact frame"] = phase_refexact(
+        small, full, accel)
     phase_profile("13", runs)
-    for more in paths:
-        for k in launches:
-            launches[k] += more[k]
+    for name, more in paths.items():
+        if name[0] != "5":
+            for k in launches:
+                launches[k] += more[k]
 
-    KERNELS[K1].update(launches=launches[K1], max_abs_err=MAX_ERR[K1],
-                       ms=ms["k1"], plain_ms=ms["k1_plain"])
-    KERNELS[SWEEP].update(launches=launches[SWEEP],
-                          max_abs_err=MAX_ERR[SWEEP], ms=ms["sweep"],
-                          plain_ms=ms["sweep_plain"])
-    report("done", seconds=time.perf_counter() - t_start)
+    # The kernel line: the sweep on the GI frame's full-reach secondary
+    # call, K1 on the 16,384-ray primary chunk (phase 6); `call` names it.
+    for kernel, what in ((K1, "K1 primary chunk (headline)"),
+                         (SWEEP, "sweep full-reach secondary (GI frame)")):
+        call = calls[what]
+        KERNELS[kernel].update(
+            launches=launches[kernel], max_abs_err=MAX_ERR[kernel],
+            ms=call["ms"], plain_ms=call["plain_ms"],
+            bound_ms=call["bound_ms"], bound_by=call["bound_by"],
+            library_ms=None,
+            call={"what": what, "kind": call["kind"], "rays": call["rays"],
+                  **{k: call[k] for k in ("tiles", "triangles", "split")
+                     if k in call}})
+    report("done", seconds=time.perf_counter() - t_start,
+           launches_by_path=paths)
     print(card)
     print(json.dumps({"kernels": list(KERNELS.values())}))
     print(json.dumps({"ok": True, "device": {

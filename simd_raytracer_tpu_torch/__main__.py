@@ -33,8 +33,9 @@ def main(argv=None) -> int:
     ap.add_argument("--occlusion", default="fast", choices=["fast", "march"],
                     help="shadow query: march re-origins through glass hop "
                          "by hop (render.hpp:110-131)")
-    ap.add_argument("--device", default="cpu",
-                    help="torch device, e.g. cpu or cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; pass cpu to render "
+                         "on the CPU)")
     args = ap.parse_args(argv)
 
     import torch

@@ -23,7 +23,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import Scene, derive_geometry
-from .render import render_chunk
+from .render import render_chunk, resolve_device
 
 # Scene leaves that make sense to differentiate.
 DIFF_PARAM_NAMES = (
@@ -43,10 +43,11 @@ def merge_params(params: Dict[str, torch.Tensor], skeleton: Scene) -> Scene:
     return skeleton.replace(**params)
 
 
-def params_from_arrays(arrays, device="cpu") -> Dict[str, torch.Tensor]:
+def params_from_arrays(arrays, device="cuda") -> Dict[str, torch.Tensor]:
     """Params from NumPy arrays named like DIFF_PARAM_NAMES (for instance
-    JAX's split_params output through np.asarray), on `device`, in the
-    dtype of `vertices`."""
+    JAX's split_params output through np.asarray), on `device` (the card
+    unless the caller asks for "cpu"), in the dtype of `vertices`."""
+    device = resolve_device(device)
     dtype = torch.from_numpy(np.array(arrays["vertices"])).dtype
     return {k: torch.from_numpy(np.array(arrays[k])).to(device=device,
                                                          dtype=dtype)

@@ -8,6 +8,10 @@ exact t ties, `idx` 0 when nothing is accepted and otherwise the closest
 winner even when it lies beyond `t_max` (then `hit` is False); with
 `any_hit`, whether any accepted pair lies inside the inclusive window.
 Everything is computed in float32, as the TPU kernel does.
+
+The kernel splits the triangle range over `k1_split` blocks per 128 rays
+when the ray blocks alone would not fill the card; blocks merge winners
+through the packed keys of `ops/select_keys.py`.
 """
 
 from __future__ import annotations
@@ -17,9 +21,26 @@ import torch
 from .. import kernels
 from ..models.scene import pack_triangles
 from .intersect import BIG, any_pair, closest_pairs
+from .select_keys import (check_eps, decode_any, decode_closest, key_t,
+                          seed_keys)
 
 # Kernel launches made by mt_select_brute on CUDA tensors.
 LAUNCHES = 0
+# Rays per block and triangles per staged tile (kRays, kTile of
+# csrc/mt_select.cu).
+RAY_BLOCK = 128
+TRI_TILE = 256
+
+
+def k1_split(n_rays: int, n_tris: int, n_sms: int) -> int:
+    """Blocks per 128 rays, each taking a share of the triangle tiles, for
+    a call of n_rays x n_tris on a card with n_sms SMs: enough for
+    kernels.BLOCKS_PER_SM blocks on every SM, 1 when the ray blocks alone
+    do that, never more than there are tiles."""
+    ray_blocks = max(1, -(-n_rays // RAY_BLOCK))
+    tiles = max(1, -(-n_tris // TRI_TILE))
+    want = -(-kernels.BLOCKS_PER_SM * n_sms // ray_blocks)
+    return max(1, min(want, tiles, 65535))
 
 
 def mt_select_reference(o, d, v0, e1, e2, eps, cull, tri_mask=None,
@@ -40,7 +61,9 @@ def mt_select_brute(o, d, v0, e1, e2, eps, cull, tri_mask=None, t_max=None,
                     any_hit=False, tri_soa=None):
     """The brute-force select: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  tri_soa is pack_triangles(v0, e1, e2) where
-    the caller holds it (Geometry.tri_soa); it is packed here otherwise."""
+    the caller holds it (Geometry.tri_soa); it is packed here otherwise.
+    eps must be >= 0 on every device (the key merge needs t >= 0)."""
+    check_eps(eps)
     if not o.is_cuda:
         return mt_select_reference(o, d, v0, e1, e2, eps, cull, tri_mask,
                                    t_max, any_hit)
@@ -68,16 +91,18 @@ def mt_select_brute(o, d, v0, e1, e2, eps, cull, tri_mask=None, t_max=None,
     if mask.shape != (t,) or tmax.shape != (r,):
         raise ValueError(f"tri_mask {tuple(mask.shape)} / t_max "
                          f"{tuple(tmax.shape)} do not match T={t}, R={r}")
-    idx = torch.empty(r, dtype=torch.int32, device=o.device)
-    hit = torch.empty(r, dtype=torch.int32, device=o.device)
-    if r == 0:
-        return idx, hit.bool()
-    lib = kernels.library()
-    rc = lib.srt_mt_select(
-        o32.data_ptr(), d32.data_ptr(), tmax.data_ptr(), tri.data_ptr(),
-        mask.data_ptr(), r, t, float(eps), int(bool(cull)),
-        int(bool(any_hit)), idx.data_ptr(), hit.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    kernels.check(rc, "mt_select")
-    LAUNCHES += 1
-    return idx, hit.bool()
+    keys = seed_keys(torch.full((r,), BIG, dtype=torch.float32,
+                                device=o.device))
+    if r:
+        rc = kernels.library().srt_mt_select(
+            o32.data_ptr(), d32.data_ptr(), tmax.data_ptr(), tri.data_ptr(),
+            mask.data_ptr(), r, t,
+            k1_split(r, t, kernels.sm_count(o.device.index or 0)),
+            float(eps), int(bool(cull)), int(bool(any_hit)),
+            keys.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+        kernels.check(rc, "mt_select")
+        LAUNCHES += 1
+    if any_hit:
+        return decode_any(keys)
+    idx, won = decode_closest(keys)
+    return idx, won & (key_t(keys) <= tmax)

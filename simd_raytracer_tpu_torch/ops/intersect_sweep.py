@@ -12,9 +12,15 @@ Culling happens outside the kernel, in torch: `_tile_reach` bounds each
 arithmetic which slices no ray of the tile can reach; `_tile_schedule`
 sorts the reachable slices of each tile front to back by their entry
 bound.  The kernel walks that schedule and stops once the next slice's
-entry bound exceeds the largest best t of the tile.  Closest hits merge on
+entry bound exceeds the largest best t of its rays.  Closest hits merge on
 (t, global id), so winners equal brute force; any-hit uses the
 division-free numerator tests.
+
+The kernel runs one block per GROUP rays (a quarter of a tile) and, when
+a call's groups would not fill the card, `sweep_split` blocks per group,
+each walking every K-th step of the schedule; blocks merge winners through
+the packed keys of `ops/select_keys.py`.  Winners do not depend on the
+split.
 """
 
 from __future__ import annotations
@@ -24,9 +30,22 @@ import torch
 from .. import kernels
 from ..accel.sweep import R_TILE, SLICE_SIZE
 from .intersect import BIG, IMAX
+from .select_keys import check_eps, decode_any, decode_closest, seed_keys
 
 # Kernel launches made by sweep_select on CUDA tensors.
 LAUNCHES = 0
+# Rays per block of the kernel (kGroup of csrc/sweep_select.cu).
+GROUP = 128
+
+
+def sweep_split(n_tiles: int, n_slices: int, n_sms: int) -> int:
+    """Blocks per 128-ray group (K of csrc/sweep_select.cu) for a call of
+    n_tiles 512-ray tiles over n_slices slices on a card with n_sms SMs:
+    enough for kernels.BLOCKS_PER_SM blocks on every SM, 1 for calls whose
+    groups already do that, never more than there are schedule steps."""
+    groups = n_tiles * (R_TILE // GROUP)
+    want = -(-kernels.BLOCKS_PER_SM * n_sms // max(groups, 1))
+    return max(1, min(want, n_slices, 65535))
 
 
 def _tile_reach(o, d, tmax, aabb, r_tile: int):
@@ -141,26 +160,30 @@ def _mt_merge(o, d, tri, gid, mask, best_t, best_i, eps, cull, any_hit):
     blk_t = t_m.amin(dim=2)
     blk_i = torch.where(t_m == blk_t[..., None], gid[:, None, :],
                         IMAX).amin(dim=2)
-    # Lexicographic merge on (t, global id), gated on a real candidate;
-    # best_t seeded with t_max makes the window inclusive.
+    return lex_merge(blk_t, blk_i, best_t, best_i)
+
+
+def lex_merge(blk_t, blk_i, best_t, best_i):
+    """Lexicographic merge on (t, global id), gated on a real candidate
+    (t < BIG); best_t seeded with t_max makes the window inclusive.  The
+    kernels' packed-key atomicMin computes the same (ops/select_keys.py)."""
     upd = (((blk_t < best_t) | ((blk_t == best_t) & (blk_i < best_i)))
            & (blk_t < BIG))
     return torch.where(upd, blk_t, best_t), torch.where(upd, blk_i, best_i)
 
 
-def sweep_select_reference(count, order, tnear, o, d, tmax, tri_soa, ids,
-                           mask, eps, cull, any_hit):
-    """Plain torch version of the sweep kernel, step for step.
-
-    Inputs as sweep_select.  Step j tests slice order[p, j] for every tile
-    p with j < count[p] whose rays' largest best t still reaches
-    tnear[p, j]; once that fails it fails for good (tnear ascends, best t
-    only falls), which is where the kernel breaks its loop."""
+def sweep_reference_walk(count, order, tnear, o, d, tmax, tri_soa, ids,
+                         mask, eps, cull, any_hit):
+    """The plain version's walk -> its final (best_t, best_i, decided),
+    each (P, R_TILE): the winner's t and id, or the window and IMAX where
+    nothing won; (-1, 0) where an any-hit query decided the ray, and then
+    `decided` holds the step that decided it (-1 elsewhere)."""
     p, n_steps = order.shape
     o_t = o.reshape(p, R_TILE, 3)
     d_t = d.reshape(p, R_TILE, 3)
     best_t = tmax.reshape(p, R_TILE).clone()
     best_i = torch.full((p, R_TILE), IMAX, dtype=torch.int32, device=o.device)
+    decided = torch.full((p, R_TILE), -1, dtype=torch.int32, device=o.device)
     cnt = count.reshape(p)
     for j in range(n_steps):
         gate = (j < cnt) & (tnear[:, j] <= best_t.amax(dim=1))
@@ -173,8 +196,25 @@ def sweep_select_reference(count, order, tnear, o, d, tmax, tri_soa, ids,
             bt, bi = _mt_merge(o_t[act], d_t[act], tri_soa[sl], ids[sl],
                                mask[sl], best_t[act], best_i[act], eps,
                                cull, any_hit)
+            if any_hit:
+                decided[act] = torch.where(bi != best_i[act], j,
+                                           decided[act])
             best_t[act] = bt
             best_i[act] = bi
+    return best_t, best_i, decided
+
+
+def sweep_select_reference(count, order, tnear, o, d, tmax, tri_soa, ids,
+                           mask, eps, cull, any_hit):
+    """Plain torch version of the sweep kernel, step for step.
+
+    Inputs as sweep_select.  Step j tests slice order[p, j] for every tile
+    p with j < count[p] whose rays' largest best t still reaches
+    tnear[p, j]; once that fails it fails for good (tnear ascends, best t
+    only falls), which is where the kernel breaks its loop."""
+    _, best_i, _ = sweep_reference_walk(count, order, tnear, o, d, tmax,
+                                        tri_soa, ids, mask, eps, cull,
+                                        any_hit)
     won = best_i != IMAX
     return torch.where(won, best_i, 0).reshape(-1), won.reshape(-1)
 
@@ -187,7 +227,9 @@ def sweep_select(count, order, tnear, o, d, tmax, tri_soa, ids, mask, eps,
     count (P, 1) int32, order (P, S) int32, tnear (P, S) float32 from
     _tile_reach/_tile_schedule; o, d (P*R_TILE, 3) and tmax (P*R_TILE,)
     float32; tri_soa (S, 9, SLICE_SIZE) float32; ids, mask
-    (S, SLICE_SIZE) int32.  Returns (idx (P*R_TILE,) int32, hit bool)."""
+    (S, SLICE_SIZE) int32.  Returns (idx (P*R_TILE,) int32, hit bool).
+    eps must be >= 0 on every device (the key merge needs t >= 0)."""
+    check_eps(eps)
     if not o.is_cuda:
         return sweep_select_reference(count, order, tnear, o, d, tmax,
                                       tri_soa, ids, mask, eps, cull, any_hit)
@@ -209,19 +251,47 @@ def sweep_select(count, order, tnear, o, d, tmax, tri_soa, ids, mask, eps,
             raise ValueError(f"{name}: expected contiguous {dtype} {shape} "
                              f"on {o.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    idx = torch.empty(rp, dtype=torch.int32, device=o.device)
-    hit = torch.empty(rp, dtype=torch.int32, device=o.device)
-    if p == 0:
-        return idx, hit.bool()
-    rc = kernels.library().srt_sweep_select(
-        count.data_ptr(), order.data_ptr(), tnear.data_ptr(), o.data_ptr(),
-        d.data_ptr(), tmax.data_ptr(), tri_soa.data_ptr(), ids.data_ptr(),
-        mask.data_ptr(), p, s, float(eps), int(bool(cull)),
-        int(bool(any_hit)), idx.data_ptr(), hit.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    kernels.check(rc, "sweep_select")
-    LAUNCHES += 1
-    return idx, hit.bool()
+    for name in ("tri_soa", "ids", "mask"):   # staged with 16-byte cp.async
+        if expect[name][0].data_ptr() % 16:
+            raise ValueError(f"{name}: needs a 16-byte aligned start")
+    keys = seed_keys(tmax)
+    if p:
+        rc = kernels.library().srt_sweep_select(
+            count.data_ptr(), order.data_ptr(), tnear.data_ptr(),
+            o.data_ptr(), d.data_ptr(), tri_soa.data_ptr(), ids.data_ptr(),
+            mask.data_ptr(), p, s,
+            sweep_split(p, s, kernels.sm_count(o.device.index or 0)),
+            float(eps), int(bool(cull)), int(bool(any_hit)), keys.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+        kernels.check(rc, "sweep_select")
+        LAUNCHES += 1
+    return decode_any(keys) if any_hit else decode_closest(keys)
+
+
+def sweep_work_pairs(count, order, tnear, mask, tmax, best_t,
+                     decided) -> int:
+    """(ray, triangle) pairs a front-to-back walk cannot skip, counted per
+    ray: the live lanes (mask > 0) of every scheduled slice whose entry
+    bound is at most the ray's own final best t; for a ray an any-hit
+    query decided, those within its window up to the deciding step.  A
+    ray with an empty window (t_max <= 0, as the padding rays have)
+    needs none.  count, order, tnear, mask and tmax as sweep_select;
+    best_t and decided as sweep_reference_walk returns them."""
+    p, s = tnear.shape
+    steps = torch.arange(s, device=tnear.device)
+    live = (mask > 0).sum(dim=1)[order.long()]                 # (P, S)
+    live = torch.where(steps[None] < count.reshape(p, 1), live, 0)
+    prefix = torch.nn.functional.pad(live.cumsum(dim=1), (1, 0))
+    tm = tmax.reshape(p, R_TILE)
+    dec = decided.reshape(p, R_TILE).long()
+    reach = torch.where(dec >= 0, tm, best_t.reshape(p, R_TILE))
+    # tnear ascends along each row, so the slices a ray needs are a prefix.
+    n = torch.searchsorted(tnear.contiguous(), reach.contiguous(),
+                           right=True)
+    n = torch.minimum(n, count.reshape(p, 1).long())
+    n = torch.where(dec >= 0, torch.minimum(n, dec + 1), n)
+    pairs = torch.where(tm > 0.0, prefix.gather(1, n), 0)
+    return int(pairs.sum())
 
 
 def prepare_sweep(sweep, o, d, tri_mask=None, t_max=None):

@@ -26,6 +26,7 @@ from ..config import RenderConfig
 from ..models.camera import primary_rays
 from ..models.scene import Geometry, Scene, derive_geometry
 from .intersect import make_select_fn, trace
+from .select_keys import check_eps
 from .shade import shade
 
 # Screen-block edge of the tiled ray order: a 512-ray sweep tile stays in
@@ -58,8 +59,22 @@ class TorchUniforms:
                           device=self.device, dtype=self.dtype)
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device), raising where it names CUDA and there is no
+    card: the entry points default to "cuda" and never fall back to the
+    CPU (CPU callers pass device="cpu")."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA device here; "
+                           f"pass device='cpu' to run on the CPU")
+    return dev
+
+
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for configurations not ported yet."""
+    """Raise NotImplementedError for configurations not ported yet, and
+    ValueError for a negative epsilon (the selects' key merge needs t >= 0)
+    on every device."""
+    check_eps(cfg.epsilon)
     if cfg.intersector != "sweep":
         make_select_fn(cfg.intersector)   # raises for the unported ones
 
@@ -184,17 +199,18 @@ def make_ray_chunks(scene: Scene, cfg: RenderConfig) -> np.ndarray:
 
 
 def render_frame(scene: Scene, cfg: RenderConfig = RenderConfig(), *,
-                 device="cpu", accel=None,
+                 device="cuda", accel=None,
                  uniforms: Optional[Callable[[int], object]] = None
                  ) -> torch.Tensor:
-    """Full-frame render on `device` -> (H, W, 3) linear color.
+    """Full-frame render on `device` (the card unless the caller asks for
+    "cpu") -> (H, W, 3) linear color.
 
     accel: SweepData for intersector="sweep" (built from the scene when
     None).  uniforms: chunk index -> uniform source for that chunk; by
     default one torch.Generator on `device`, seeded with cfg.rng_seed,
     serves every chunk in order."""
     check_supported(cfg)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     scene = scene.to(dev)
     if cfg.intersector == "sweep":
         if accel is None:

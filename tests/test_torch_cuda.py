@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import simd_raytracer_tpu_torch as T
+from simd_raytracer_tpu_torch import kernels
 from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
 from simd_raytracer_tpu_torch.ops import grad as G
 from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
@@ -98,6 +99,109 @@ def test_sweep_kernel_matches_plain(scene, cull, windowed, any_hit):
         assert torch.equal(got[0][:n][brute[1]], brute[0][brute[1]])
 
 
+def incoherent(scene_cam, n, seed, windowed):
+    o, d, tmax = rays(scene_cam, n, seed)
+    return o, d, (tmax if windowed else None)
+
+
+@pytest.mark.parametrize("n_rays", [300, 1400, None],
+                         ids=["1-tile", "3-tile", "unsplit"])
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sweep_split_and_unsplit_match_plain(scene, n_rays, windowed,
+                                             any_hit):
+    """Incoherent rays: 1- and 3-tile calls split every group's schedule
+    over several blocks; a call of BLOCKS_PER_SM groups per SM fills the
+    card unsplit."""
+    s, g, sweep = scene
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    unsplit = n_rays is None
+    if unsplit:
+        n_rays = kernels.BLOCKS_PER_SM * n_sms * intersect_sweep.GROUP
+    o, d, tmax = incoherent(s.cam_pos, n_rays, 10 + n_rays, windowed)
+    solid = g.tri_valid & ~g.tri_transmissive
+    args = intersect_sweep.prepare_sweep(sweep, o, d, solid, tmax)
+    k = intersect_sweep.sweep_split(args[1].shape[0], sweep.num_slices,
+                                    n_sms)
+    assert (k == 1) == unsplit
+    got = intersect_sweep.sweep_select(*args, EPS, False, any_hit)
+    assert_equal(got, intersect_sweep.sweep_select_reference(
+        *args, EPS, False, any_hit))
+    n = len(o)
+    assert 0 < int(got[1][:n].sum()) < n
+    if not any_hit:
+        brute = intersect_brute.mt_select_brute(o, d, g.v0, g.e1, g.e2, EPS,
+                                                False, solid, tmax)
+        assert torch.equal(got[1][:n], brute[1])
+        assert torch.equal(got[0][:n][brute[1]], brute[0][brute[1]])
+
+
+@pytest.mark.parametrize("n_tris", [1000, 1283], ids=["1000", "1283"])
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_mt_select_triangle_split_matches_plain(scene, n_tris, windowed,
+                                                any_hit):
+    """Triangle counts that are not a multiple of the 256-triangle tile,
+    split over several blocks per 128 rays."""
+    s, g, _ = scene
+    o, d, tmax = incoherent(s.cam_pos, 2500, 20 + n_tris, windowed)
+    n_valid = int(g.tri_valid.sum())
+    pick = torch.arange(n_tris, device=DEV) % n_valid
+    v0, e1, e2 = g.v0[pick], g.e1[pick], g.e2[pick]
+    mask = torch.arange(n_tris, device=DEV) % 7 != 3
+    assert intersect_brute.k1_split(
+        len(o), n_tris,
+        torch.cuda.get_device_properties(0).multi_processor_count) > 1
+    args = (o, d, v0, e1, e2, EPS, False, mask, tmax, any_hit)
+    got = intersect_brute.mt_select_brute(*args)
+    assert_equal(got, intersect_brute.mt_select_reference(*args))
+    assert 0 < int(got[1].sum()) < len(o)
+
+
+@pytest.mark.parametrize("n_tris", [1, 600])
+def test_mt_select_writes_no_key_past_the_last_ray(scene, n_tris):
+    """1,030 rays (the last 128-ray block holds 6) leave from near the
+    origin along +z through stacked triangles that the block's idle
+    threads would hit too, were they to test the origin along +z.  The
+    keys are the head of a larger buffer whose tail must stay as it was."""
+    from simd_raytracer_tpu_torch.models.scene import pack_triangles
+    from simd_raytracer_tpu_torch.ops.intersect import BIG
+    from simd_raytracer_tpu_torch.ops.select_keys import (decode_any,
+                                                          decode_closest,
+                                                          seed_keys)
+    n = 1030
+    rng = np.random.default_rng(7)
+    o = torch.zeros(n, 3, device=DEV)
+    o[:, :2] = torch.tensor(rng.uniform(-0.2, 0.2, (n, 2)), device=DEV)
+    d = torch.tensor([0.0, 0.0, 1.0], device=DEV).expand(n, 3).contiguous()
+    z = 5.0 + 0.01 * torch.arange(n_tris, device=DEV, dtype=torch.float32)
+    v0 = torch.stack([torch.full_like(z, -1.0), torch.full_like(z, -1.0), z],
+                     dim=1)
+    e1 = torch.tensor([3.0, 0.0, 0.0], device=DEV).expand(n_tris, 3)
+    e2 = torch.tensor([0.0, 3.0, 0.0], device=DEV).expand(n_tris, 3)
+    tri = pack_triangles(v0, e1, e2)
+    mask = torch.ones(n_tris, dtype=torch.int32, device=DEV)
+    tmax = torch.full((n,), BIG, device=DEV)
+    split = intersect_brute.k1_split(
+        n, n_tris, torch.cuda.get_device_properties(0).multi_processor_count)
+    canary = torch.iinfo(torch.int64).max
+    for any_hit in (False, True):
+        buf = torch.full((n + 512,), canary, dtype=torch.int64, device=DEV)
+        buf[:n] = seed_keys(tmax)
+        rc = kernels.library().srt_mt_select(
+            o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tri.data_ptr(),
+            mask.data_ptr(), n, n_tris, split, EPS, 0, int(any_hit),
+            buf.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        kernels.check(rc, "mt_select")
+        torch.cuda.synchronize()
+        assert bool((buf[n:] == canary).all())
+        got = decode_any(buf[:n]) if any_hit else decode_closest(buf[:n])
+        ref = intersect_brute.mt_select_reference(o, d, v0, e1, e2, EPS,
+                                                  False, any_hit=any_hit)
+        assert_equal(got, ref)
+        assert bool(got[1].all())
+
+
 ROULETTE_SWEEP = dict(samples_per_pixel=2, bounce_mode="roulette",
                       intersector="sweep")
 
@@ -148,7 +252,11 @@ def test_wrappers_reject_bad_input(scene):
     with pytest.raises(ValueError):
         intersect_brute.mt_select_brute(o, d, g.v0, g.e1, g.e2, EPS, True,
                                         tri_soa=g.tri_soa[:, 1:])
+    with pytest.raises(ValueError, match="eps"):   # the key merge needs t >= 0
+        intersect_brute.mt_select_brute(o, d, g.v0, g.e1, g.e2, -EPS, True)
     args = list(intersect_sweep.prepare_sweep(sweep, o, d))
+    with pytest.raises(ValueError, match="eps"):
+        intersect_sweep.sweep_select(*args, -EPS, True, False)
     args[3] = args[3].double()
     with pytest.raises(ValueError):
         intersect_sweep.sweep_select(*args, EPS, True, False)

@@ -47,7 +47,8 @@ def test_gi_render_matches_jax(scenes, gi, mode):
     ref = np.asarray(J.render_frame(js, jcfg))
     keys = jax.random.split(jax.random.PRNGKey(jcfg.rng_seed),
                             len(make_ray_chunks(ts, tcfg)))
-    img = T.render_frame(ts, tcfg, uniforms=lambda c: JaxUniforms(keys[c]))
+    img = T.render_frame(ts, tcfg, device="cpu",
+                         uniforms=lambda c: JaxUniforms(keys[c]))
     assert img.shape == (12, 12, 3) and torch.isfinite(img).all()
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=1e-4)
 
@@ -139,8 +140,9 @@ def test_gi_render_with_torch_generator(scenes):
     cfg = T.RenderConfig(max_ray_depth=3, samples_per_pixel=2,
                          bounce_mode="roulette",
                          diffuse_reflection_ray_count=2)
-    a, b = T.render_frame(ts, cfg), T.render_frame(ts, cfg)
+    a = T.render_frame(ts, cfg, device="cpu")
+    b = T.render_frame(ts, cfg, device="cpu")
     assert torch.isfinite(a).all() and torch.equal(a, b)
     no_gi = T.render_frame(ts, T.RenderConfig(
-        **{**cfg.__dict__, "diffuse_reflection_ray_count": 0}))
+        **{**cfg.__dict__, "diffuse_reflection_ray_count": 0}), device="cpu")
     assert not torch.equal(a, no_gi)

@@ -47,7 +47,8 @@ def jax_pair():
         js = to_x64(J.parse_scene_dict(mixed_doc(H, W, g=8, subdiv=2)))
         jp, jsk = JG.split_params(js)
         tsk = port_scene(js)
-        tp = G.params_from_arrays({k: np.asarray(v) for k, v in jp.items()})
+        tp = G.params_from_arrays({k: np.asarray(v) for k, v in jp.items()},
+                                  device="cpu")
         return jp, jsk, j_build(js), tp, tsk, build_sweep_for_scene(tsk)
 
 

@@ -183,5 +183,5 @@ def test_refexact_render_matches_jax(glass):
     kw = dict(max_ray_depth=3, chunk_size=256, samples_per_pixel=1,
               occlusion_mode="march", intersector="fast", bounce_skip=False)
     ref = np.asarray(J.render_frame(js, J.RenderConfig(**kw)))
-    img = T.render_frame(ts, T.RenderConfig(**kw))
+    img = T.render_frame(ts, T.RenderConfig(**kw), device="cpu")
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=1e-4)

@@ -39,7 +39,7 @@ def test_split_render_matches_jax(scenes, source):
     js, ts = scenes
     kw = dict(max_ray_depth=3, chunk_size=2048)
     ref = np.asarray(J.render_frame(js, J.RenderConfig(**kw)))
-    img = T.render_frame(ts[source], T.RenderConfig(**kw))
+    img = T.render_frame(ts[source], T.RenderConfig(**kw), device="cpu")
     assert img.shape == (48, 48, 3) and img.dtype == torch.float32
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=1e-4)
 
@@ -54,7 +54,7 @@ def test_roulette_sweep_render_matches_jax(scenes, source):
     assert np.array_equal(chunks, j_chunks(js, jcfg))
     keys = jax.random.split(jax.random.PRNGKey(jcfg.rng_seed), len(chunks))
     ref = np.asarray(J.render_frame(js, jcfg))
-    img = T.render_frame(ts[source], tcfg,
+    img = T.render_frame(ts[source], tcfg, device="cpu",
                          uniforms=lambda c: JaxUniforms(keys[c]))
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=1e-4)
 
@@ -63,10 +63,10 @@ def test_roulette_render_with_torch_generator(scenes):
     _, ts = scenes
     cfg = T.RenderConfig(max_ray_depth=3, chunk_size=1024,
                          samples_per_pixel=2, bounce_mode="roulette")
-    a = T.render_frame(ts["parsed"], cfg)
-    b = T.render_frame(ts["parsed"], cfg)
+    a = T.render_frame(ts["parsed"], cfg, device="cpu")
+    b = T.render_frame(ts["parsed"], cfg, device="cpu")
     c = T.render_frame(ts["parsed"], T.RenderConfig(
-        **{**cfg.__dict__, "rng_seed": 7}))
+        **{**cfg.__dict__, "rng_seed": 7}), device="cpu")
     assert torch.isfinite(a).all() and torch.equal(a, b)
     assert not torch.equal(a, c)
     assert (a != ts["parsed"].background).any()
@@ -77,7 +77,7 @@ def test_cpu_render_launches_no_kernel(scenes):
     before = (intersect_brute.LAUNCHES, intersect_sweep.LAUNCHES)
     T.render_frame(ts["parsed"].replace(height=8, width=8),
                    T.RenderConfig(max_ray_depth=2, intersector="sweep",
-                                  bounce_mode="roulette"))
+                                  bounce_mode="roulette"), device="cpu")
     assert (intersect_brute.LAUNCHES, intersect_sweep.LAUNCHES) == before
 
 
@@ -88,7 +88,7 @@ def test_cpu_render_launches_no_kernel(scenes):
 def test_unported_configs_raise(scenes, kw, item):
     _, ts = scenes
     with pytest.raises(NotImplementedError, match=item):
-        T.render_frame(ts["parsed"], T.RenderConfig(**kw))
+        T.render_frame(ts["parsed"], T.RenderConfig(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("flags,kw", [
@@ -107,7 +107,7 @@ def test_cli_writes_the_render(tmp_path, scenes, flags, kw):
                      "--device", "cpu"]) == 0
     img = T.render_frame(
         T.parse_scene_file(str(path)).replace(width=20, height=12),
-        T.RenderConfig(max_ray_depth=2, **kw))
+        T.RenderConfig(max_ray_depth=2, **kw), device="cpu")
     save_ppm(img, str(tmp_path / "expect.ppm"))
     assert out.read_bytes() == (tmp_path / "expect.ppm").read_bytes()
     assert read_ppm(str(out)).shape == (12, 20, 3)
