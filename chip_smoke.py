@@ -8,15 +8,18 @@
 Builds the port's CUDA kernels from `simd_raytracer_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, drives the render path
 (`parse_scene_file` -> `render_frame` -> `save_ppm`), diffuse GI, the
-training path (`ops.grad.train_steps`) and march occlusion through the
-kernels at full size, and checks each on CUDA against the CPU on a small
-scene.  Scenes come from `tests/torch_scenes.py` (generated, no files).
+training path (`ops.grad.train_steps`), march occlusion, the reference
+binary's kd-tree path in bucket tiles, progressive rendering, animation
+and the CLI through the kernels at full size, and checks each on CUDA
+against the CPU on a small scene or against another select.  Scenes come
+from `tests/torch_scenes.py` (generated, no files).
 
 Phases, one result line each:
   1. device and kernel build;
   2. the brute-force select kernel against its plain version (exact);
   3. the sweep kernel on a 106.5k- and a 250k-triangle scene: closest hits
      equal the brute-force kernel, any-hit equals its plain version (exact);
+     the camera call timed against its plain version and its bound;
   4. a small render on the CPU (plain versions) and on CUDA (kernels), with
      the same uniforms: images within 1e-4;
   5. full-size renders on CUDA, with every kernel launch counted;
@@ -47,12 +50,28 @@ Phases, one result line each:
      the sweep, brute force and fast selects, then one timed frame of the
      full scene;
  13. where the time of phase 8's GI frame, one SGD step of phases 10 and
-     11 and phase 12's frame goes, as phase 7.
-Phases 5 and 8-12 each count the kernel launches of their own paths from
-zero and fail if a kernel of the path never launched; the kernel line
-reports their sum, with phase 6's times and bounds of the sweep's
-full-reach secondary call and K1's primary chunk (named by each entry's
-`call`).  The last three lines
+     11 and phase 12's frame goes, as phase 7;
+ 14. the kd-tree of the full scene built by NumPy and by the native
+     builder (equal arrays); the kd kernel exact against its plain
+     version on the middle 16,384-ray primary chunk of phase 15's bucket
+     order and on the largest shadow call of a 480x480 kd frame, timed
+     against its bound (the live leaf lanes the walk tests x 54 over 67
+     TFLOP/s) and beside K1 on the same calls; the kd kernel and a kdleaf
+     sweep against K1 on 8,192 random rays;
+ 15. the reference binary's path at full width: parse, native kd build,
+     a 960x960 spp 1 depth 5 split frame through the kd kernel in bucket
+     tiles, save_ppm; held against the brute-force frame (max |d| 1e-4,
+     PPM channels off by at most 1 on at most 0.1%), timed and profiled;
+ 16. render_progressive of the headline config at 8 spp in batches of 4,
+     stopped after one batch and resumed from its checkpoint (within 1e-6
+     relative of the whole render); a 4-frame orbit at 480x480; the
+     wavefront occupancy of one headline chunk; the CLI with
+     --intersector kdtree --scheduling bucket --profile.
+Phases 5, 8-12, 15 and 16 each count the kernel launches of their own
+paths from zero and fail if a kernel of the path never launched; the
+kernel line reports their sum, with phase 6's and 14's times and bounds of
+the sweep's full-reach secondary call and K1's and the kd kernel's primary
+chunk (named by each entry's `call`).  The last three lines
 are the card, a JSON object per kernel and {"ok": true, ...}.
 Every phase raises on failure, so the script exits non-zero.  It needs a
 CUDA device and exits 1 without one.
@@ -76,6 +95,7 @@ DEV = "cuda"
 
 K1 = "mt_select"
 SWEEP = "sweep_select"
+KD = "kd_select"
 KERNELS = {
     K1: {"name": K1, "route": "cuda",
          "source": "simd_raytracer_tpu_torch/csrc/mt_select.cu",
@@ -84,14 +104,25 @@ KERNELS = {
             "source": "simd_raytracer_tpu_torch/csrc/sweep_select.cu",
             "replaces": "simd_raytracer_tpu/ops/intersect_sweep.py:239 "
                         "(and :205, the streaming variant)"},
+    KD: {"name": KD, "route": "cuda",
+         "source": "simd_raytracer_tpu_torch/csrc/kd_select.cu",
+         "replaces": "simd_raytracer_tpu/accel/traverse.py:57 (jnp)"},
 }
-MAX_ERR = {K1: 0, SWEEP: 0}
+MAX_ERR = {K1: 0, SWEEP: 0, KD: 0}
 # Edge of the square frames of phases 5 (default), 8 and 12, and the ray
 # ids of each SGD step of phases 10 and 11 (bench.py's chunk).
 FRAME = 480
 TRAIN_RAYS = 65536
+# Edge of the reference binary's full-width frame (phase 15).
+REFBIN = 960
 # The kernel each select name runs on the card ("fast" is plain torch).
-SELECT_KERNEL = {"jnp": K1, "pallas": K1, "sweep": SWEEP}
+SELECT_KERNEL = {"jnp": K1, "pallas": K1, "sweep": SWEEP, "kdtree": KD}
+
+
+# The argument names of ops/intersect_sweep.py::sweep_select before eps,
+# cull and any_hit, in order (prepare_sweep's tuple).
+SWEEP_ARGS = ("count", "order", "tnear", "o", "d", "tmax", "tri_soa", "ids",
+              "mask")
 
 
 def report(phase: str, **fields) -> None:
@@ -226,6 +257,11 @@ def phase_sweep(label, scene):
           (got[0][:r], got[1][:r]),
           mt_select_brute(o, d, geom.v0, geom.e1, geom.e2, EPS, True,
                           geom.tri_valid))
+    # The same call against the plain version, timed with its bound (the
+    # streaming case of the JAX package on the 250k terrain).
+    timed = sweep_call(f"{label} camera closest-hit", {
+        **dict(zip(SWEEP_ARGS, args)), "eps": EPS, "cull": True,
+        "any_hit": False})
     hit = trace(o, d, scene, geom, EPS, True, intersector="sweep",
                 accel=sweep)
     solid = geom.tri_valid & ~geom.tri_transmissive
@@ -256,7 +292,7 @@ def phase_sweep(label, scene):
            slices=sweep.num_slices, soup_bytes=soup,
            jax_kernel="_kernel_resident" if soup <= 6 << 20 else "_kernel",
            camera_rays=r, camera_hits=int(got[1][:r].sum()), shadow=shadow,
-           exact=True, seconds=time.perf_counter() - t0)
+           camera_call=timed, exact=True, seconds=time.perf_counter() - t0)
 
 
 def render_cpu_vs_cuda(what, scene, cfg, seed):
@@ -313,8 +349,7 @@ def phase_small(tmp):
 def render_timed(label, scene, cfg, accel=None, frames=3, phase="5"):
     """One warm frame, then `frames` timed ones; checks the image."""
     import simd_raytracer_tpu_torch as T
-    from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
-    before = (intersect_brute.LAUNCHES, intersect_sweep.LAUNCHES)
+    before = counts()
     times = []
     for i in range(frames + 1):
         torch.cuda.synchronize()
@@ -328,8 +363,7 @@ def render_timed(label, scene, cfg, accel=None, frames=3, phase="5"):
             and bool(torch.isfinite(img).all()) and not_bg > 0.01):
         raise AssertionError(f"{label}: bad image (shape {tuple(img.shape)}, "
                              f"non-background share {not_bg})")
-    launches = {K1: intersect_brute.LAUNCHES - before[0],
-                SWEEP: intersect_sweep.LAUNCHES - before[1]}
+    launches = {k: v - before[k] for k, v in counts().items()}
     rays = scene.height * scene.width * cfg.samples_per_pixel
     mean = sum(times[1:]) / frames
     report(f"{phase} {label}", width=scene.width, height=scene.height,
@@ -344,7 +378,6 @@ def phase_full(tmp):
     import simd_raytracer_tpu_torch as T
     from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
     from simd_raytracer_tpu_torch.models.scene import build_scene
-    from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
     from simd_raytracer_tpu_torch.utils.ppm import read_ppm
     from torch_scenes import bitmap_scene_kwargs, mixed_doc
     path = os.path.join(tmp, "mixed960.crtscene")
@@ -357,15 +390,14 @@ def phase_full(tmp):
     bitmap = build_scene(**bitmap_scene_kwargs(256, 256)).to(DEV)
 
     default = scene.replace(height=FRAME, width=FRAME)
-    intersect_brute.LAUNCHES = 0
-    intersect_sweep.LAUNCHES = 0
+    counts_reset()
     img, l_head, s_head = render_timed("headline roulette+sweep", scene,
                                        headline, accel)
     _, l_default, s_default = render_timed("default split+jnp", default,
                                            T.RenderConfig())
     _, l_bitmap, _ = render_timed("bitmap textures", bitmap,
                                   T.RenderConfig())
-    launches = {K1: intersect_brute.LAUNCHES, SWEEP: intersect_sweep.LAUNCHES}
+    launches = counts()
 
     out = os.path.join(tmp, "headline.ppm")
     T.save_ppm(img, out)
@@ -547,8 +579,7 @@ def phase_timed(frames, full, accel):
     geom = derive_geometry(scene)
     chunk = make_ray_chunks(scene, cfg).shape[0] // 2
     o, d = camera_rays(scene, cfg, chunk, SeededUniforms(6, chunk))
-    sw = dict(zip(("count", "order", "tnear", "o", "d", "tmax", "tri_soa",
-                   "ids", "mask"), prepare_sweep(accel, o, d, geom.tri_valid)))
+    sw = dict(zip(SWEEP_ARGS, prepare_sweep(accel, o, d, geom.tri_valid)))
     sw.update(eps=EPS, cull=True, any_hit=False)
     k1 = dict(o=o, d=d, v0=geom.v0, e1=geom.e1, e2=geom.e2, eps=EPS,
               cull=True, tri_mask=geom.tri_valid, t_max=None, any_hit=False,
@@ -597,8 +628,9 @@ def fill_targets(sweep_args, k1_args):
 
 def device_profile(run):
     """One call of `run` (a frame or an SGD step) under torch.profiler ->
-    (wall s, device busy s, device events, top kernels).  Busy time is the
-    union of the intervals of every device event (kernels, copies, sets)."""
+    (wall s, device busy s, device events, top kernels, {name: device s}).
+    Busy time is the union of the intervals of every device event
+    (kernels, copies, sets)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -624,7 +656,8 @@ def device_profile(run):
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     return wall, busy_ns * 1e-9, len(spans), [
-        {"kernel": k[:80], "calls": n, "s": t * 1e-9} for k, (n, t) in top]
+        {"kernel": k[:80], "calls": n, "s": t * 1e-9} for k, (n, t) in top], {
+        k: t * 1e-9 for k, (_, t) in by_name.items()}
 
 
 def sweep_calls(run):
@@ -683,7 +716,7 @@ def phase_profile(phase, runs):
     run.  runs: label -> (run, unprofiled seconds of one call, whether it
     runs the sweep)."""
     for label, (run, frame_s, sweep) in runs.items():
-        wall, busy, n_events, top = device_profile(run)
+        wall, busy, n_events, top, _ = device_profile(run)
         fields = dict(profiled_wall_s=wall, device_busy_s=busy,
                       device_events=n_events,
                       busy_share_of_profiled_frame=busy / wall,
@@ -696,14 +729,18 @@ def phase_profile(phase, runs):
 
 
 def counts_reset() -> None:
-    from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
+    from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_kd,
+                                              intersect_sweep)
     intersect_brute.LAUNCHES = 0
     intersect_sweep.LAUNCHES = 0
+    intersect_kd.LAUNCHES = 0
 
 
 def counts() -> dict:
-    from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
-    return {K1: intersect_brute.LAUNCHES, SWEEP: intersect_sweep.LAUNCHES}
+    from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_kd,
+                                              intersect_sweep)
+    return {K1: intersect_brute.LAUNCHES, SWEEP: intersect_sweep.LAUNCHES,
+            KD: intersect_kd.LAUNCHES}
 
 
 def need_launches(what, launches, *kernels) -> None:
@@ -906,6 +943,325 @@ def phase_refexact(small, full, accel):
     return launches, (frame_run(frame, cfg, accel), frame_s, True)
 
 
+def kd_call(label, a, tree):
+    """Hold the kd kernel on one call exactly against its plain version
+    (accel/traverse.py::kd_select on the same CUDA tensors); time both;
+    bound: the live leaf lanes the walk tests (kd_work_pairs) x 54 float
+    operations over 67 TFLOP/s, or the bytes it must move."""
+    from simd_raytracer_tpu_torch.accel.traverse import (kd_select,
+                                                         kd_work_pairs)
+    from simd_raytracer_tpu_torch.ops.intersect_kd import kd_select_cuda
+    args = (a["o"], a["d"], a["v0"], a["e1"], a["e2"], a["eps"], a["cull"],
+            a["tri_mask"], tree)
+    got = kd_select_cuda(*args)
+    exact(KD, label, got, kd_select(*args))
+    pairs = kd_work_pairs(*args)
+    ms, plain_ms, runs = time_call(lambda: kd_select_cuda(*args),
+                                   lambda: kd_select(*args), 10)
+    r, t = a["o"].shape[0], a["v0"].shape[0]
+    # o, d in and idx, hit out: 29 bytes a ray; the packed triangle and
+    # its mask: 40 bytes; the node records and the leaf lists.
+    n_bytes = (29 * r + 40 * t + 40 * tree.num_nodes
+               + 4 * tree.leaf_tris.numel())
+    b_ms, by = bound(pairs, n_bytes)
+    return dict(kind=ray_kind(a.get("any_hit", False), a["cull"]), rays=r,
+                hits=int(got[1].sum()), ms=ms, runs_ms=runs,
+                plain_ms=plain_ms, pairs_needed=pairs,
+                pairs_per_ray=pairs / max(r, 1), bound_ms=b_ms, bound_by=by,
+                share_of_bound=b_ms / ms, exact=True)
+
+
+def kd_config():
+    """The reference binary's configuration (phases 14 and 15): spp 1,
+    depth 5, split, fast occlusion, the kd-tree, bucket tiles."""
+    import simd_raytracer_tpu_torch as T
+    return T.RenderConfig(max_ray_depth=5, intersector="kdtree")
+
+
+def phase_kd(scene):
+    """The kd build of the full scene by NumPy and by the native builder
+    (equal arrays); the kd kernel exact against its plain version on the
+    middle 16,384-ray primary chunk of the kd frame's bucket order (K1
+    timed on it too) and on the largest shadow call of a 480x480 kd
+    frame, timed against its bound; the kd kernel and a kdleaf sweep
+    against K1 on 8,192 random rays."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.models.camera import primary_rays
+    from simd_raytracer_tpu_torch.accel.build import (KDTREE_FIELDS,
+                                                      build_kdtree_for_scene)
+    from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
+    from simd_raytracer_tpu_torch.ops import intersect as I
+    from simd_raytracer_tpu_torch.ops.intersect_brute import mt_select_brute
+    from simd_raytracer_tpu_torch.ops.intersect_kd import kd_select_cuda
+    from simd_raytracer_tpu_torch.ops.intersect_sweep import (
+        make_sweep_select)
+    from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
+    from simd_raytracer_tpu_torch.parallel.tiles import SchedulingType
+    host = scene.to("cpu")
+    secs = {}
+    for name, native in (("numpy", False), ("native", True)):
+        t0 = time.perf_counter()
+        tree = build_kdtree_for_scene(host, use_native=native)
+        secs[name] = time.perf_counter() - t0
+        if native:
+            for f in KDTREE_FIELDS:
+                if not torch.equal(getattr(tree, f), getattr(np_tree, f)):
+                    raise AssertionError(f"native kd build differs: {f}")
+        np_tree = tree
+    tree = tree.to(DEV)
+    geom = T.derive_geometry(scene)
+    leaf_lens = (tree.leaf_tris >= 0).sum(dim=1)
+
+    ids = make_ray_chunks(scene, kd_config(), SchedulingType.BUCKET_TILES)
+    chunk = ids[ids.shape[0] // 2]
+    pix = torch.from_numpy(chunk[chunk < scene.height * scene.width]
+                           ).long().to(DEV)
+    half = torch.full(pix.shape, 0.5, device=DEV)
+    o, d = primary_rays(scene, kd_config().fov_degrees, pix % scene.width,
+                        pix // scene.width, half, half)
+    primary = dict(o=o, d=d, v0=geom.v0, e1=geom.e1, e2=geom.e2, eps=EPS,
+                   cull=True, tri_mask=geom.tri_valid)
+
+    def kind_of(a):
+        return ray_kind(a["any_hit"], a["cull"]), a["o"].shape[0]
+
+    frame = scene.replace(height=FRAME, width=FRAME)
+    kept = capture(lambda: T.render_frame(
+        frame, kd_config(), device=DEV, accel=tree,
+        scheduling=SchedulingType.BUCKET_TILES), I, "_kd_window_select",
+        kind_of)
+    calls = {"kd primary chunk (kd frame)": kd_call("kd primary chunk",
+                                                    primary, tree),
+             "kd shadow (480x480 kd frame)": kd_call(
+                 "kd shadow", kept["shadow"], tree)}
+    # K1 on the same calls, for comparison.
+    for what, a in (("kd primary chunk (kd frame)", primary),
+                    ("kd shadow (480x480 kd frame)", kept["shadow"])):
+        calls[what]["k1_ms_same_call"] = event_ms(lambda: mt_select_brute(
+            a["o"], a["d"], a["v0"], a["e1"], a["e2"], EPS, a["cull"],
+            a["tri_mask"], a.get("t_max"), a.get("any_hit", False),
+            tri_soa=geom.tri_soa), 5)
+
+    o, d, tmax = random_rays(scene, 8192, seed=14)
+    sweep = build_sweep_for_scene(host, partition="kdleaf").to(DEV)
+    select = make_sweep_select(sweep)
+    solid = geom.tri_valid & ~geom.tri_transmissive
+    vs_k1 = {}
+    for cull in (True, False):
+        brute = mt_select_brute(o, d, geom.v0, geom.e1, geom.e2, EPS, cull,
+                                geom.tri_valid)
+        for label, got in (
+                ("kd", kd_select_cuda(o, d, geom.v0, geom.e1, geom.e2, EPS,
+                                      cull, geom.tri_valid, tree)),
+                ("kdleaf sweep", select(o, d, geom.v0, geom.e1, geom.e2,
+                                        EPS, cull, geom.tri_valid))):
+            exact(KD if label == "kd" else SWEEP,
+                  f"{label} vs K1 cull={cull}", got, brute, where=brute[1])
+            vs_k1[f"{label} cull={cull}"] = int(got[1].sum())
+    for any_hit in (False, True):
+        brute = mt_select_brute(o, d, geom.v0, geom.e1, geom.e2, EPS, False,
+                                solid, tmax, any_hit)
+        got = select(o, d, geom.v0, geom.e1, geom.e2, EPS, False, solid,
+                     tmax, any_hit)
+        exact(SWEEP, f"kdleaf sweep vs K1 window any_hit={any_hit}", got,
+              brute, where=brute[1])
+        vs_k1[f"kdleaf sweep window any_hit={any_hit}"] = int(got[1].sum())
+    torch.cuda.synchronize()
+    report("14 kd build and kernel", triangles=int(geom.tri_valid.sum()),
+           build_s=secs, nodes=tree.num_nodes,
+           leaves=int((tree.leaf_id >= 0).sum()), depth=tree.depth,
+           leaf_cap=tree.leaf_cap, leaf_refs=int(leaf_lens.sum()),
+           leaf_median=float(leaf_lens.float().median()),
+           leaf_max=int(leaf_lens.max()), calls=calls,
+           random_rays=len(o), hits_vs_k1=vs_k1,
+           kdleaf_slices=sweep.num_slices, exact=True)
+    return calls
+
+
+def phase_refbin(tmp):
+    """The reference binary's path at full width: parse the file, build
+    the kd-tree, render in bucket tiles through the kd kernel, save the
+    PPM; held against the brute-force frame (K1, linear order) and
+    profiled as phase 7."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.accel.build import build_kdtree_for_scene
+    from simd_raytracer_tpu_torch.parallel.tiles import SchedulingType
+    from simd_raytracer_tpu_torch.utils.ppm import image_to_u8, read_ppm
+    from simd_raytracer_tpu_torch.utils.profiling import PhaseTimer
+    from torch_scenes import mixed_doc
+    path = os.path.join(tmp, "refbin.crtscene")
+    with open(path, "w") as f:
+        json.dump(mixed_doc(REFBIN, REFBIN), f)
+    timer = PhaseTimer()
+    with timer.phase("load"):
+        scene = T.parse_scene_file(path)
+    with timer.phase("accel_build"):
+        tree = build_kdtree_for_scene(scene)
+    cfg = kd_config()
+    sched = SchedulingType.BUCKET_TILES
+
+    def run():
+        return T.render_frame(scene, cfg, device=DEV, accel=tree,
+                              scheduling=sched)
+
+    counts_reset()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = counts()
+    need_launches("kd frame", launches, KD)
+    out = os.path.join(tmp, "refbin.ppm")
+    with timer.phase("save_ppm"):
+        T.save_ppm(img, out)
+    if read_ppm(out).shape != (REFBIN, REFBIN, 3):
+        raise AssertionError("kd frame PPM has the wrong shape")
+
+    ref = T.render_frame(scene, T.RenderConfig(max_ray_depth=5),
+                         device=DEV).cpu()
+    got = img.cpu()
+    err = float((got - ref).abs().max())
+    ua, ub = image_to_u8(ref).astype(int), image_to_u8(got).astype(int)
+    off = int((ua != ub).sum())
+    pixels = int((got != ref).any(dim=-1).sum())
+    fields = dict(width=REFBIN, height=REFBIN, spp=1, depth=5,
+                  bucket=scene.bucket_size, warm_s=times[0], frame_s=times[1],
+                  primary_rays_per_s=REFBIN * REFBIN / times[1],
+                  phases_s=dict(timer.seconds), launches=launches,
+                  vs_brute_force=dict(max_abs_err=err,
+                                      pixels_differing=pixels,
+                                      ppm_channels_differing=off,
+                                      ppm_max_channel_diff=int(
+                                          np.abs(ua - ub).max())))
+    if not (bool(torch.isfinite(got).all()) and err <= 1e-4
+            and int(np.abs(ua - ub).max()) <= 1 and off <= 0.001 * ua.size):
+        report("15 kd frame (failed)", **fields)
+        raise AssertionError(f"kd frame differs from the brute-force frame: "
+                             f"max |d| {err}, {pixels} pixels, {off} PPM "
+                             f"channels")
+    wall, busy, n_events, top, by_name = device_profile(run)
+    kd_s = sum(t for k, t in by_name.items() if "kd_select" in k)
+    fields.update(profiled_wall_s=wall, device_busy_s=busy,
+                  device_events=n_events,
+                  busy_share_of_profiled_frame=busy / wall,
+                  busy_share_of_unprofiled_frame=busy / times[1],
+                  kd_kernel_s=kd_s, kd_share_of_busy=kd_s / busy,
+                  top_device=top)
+    report("15 kd frame (reference binary path)", **fields)
+    return launches
+
+
+def phase_progressive(tmp, full, accel):
+    """render_progressive of the headline config (960x960, roulette +
+    sweep) at 8 spp in batches of 4, once whole and once stopped after a
+    batch and resumed from its checkpoint; a 4-frame orbit at 480x480;
+    the wavefront occupancy of one headline chunk; the CLI on a small
+    generated scene with --intersector kdtree --scheduling bucket
+    --profile."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
+    from simd_raytracer_tpu_torch.utils.animation import (orbit_path,
+                                                          render_animation)
+    from simd_raytracer_tpu_torch.utils.checkpoint import render_progressive
+    from simd_raytracer_tpu_torch.utils.profiling import wavefront_occupancy
+    from simd_raytracer_tpu_torch.utils.ppm import read_ppm
+    from torch_scenes import mixed_doc
+    cfg = T.RenderConfig(samples_per_pixel=8, max_ray_depth=5,
+                         bounce_mode="roulette", intersector="sweep")
+    counts_reset()
+    t0 = time.perf_counter()
+    whole = render_progressive(full, cfg, 8, 4, accel=accel, device=DEV)
+    whole_s = time.perf_counter() - t0
+    ck = os.path.join(tmp, "progressive.ckpt.npz")
+
+    class Stop(Exception):
+        pass
+
+    def stop(done, _img):
+        if done >= 4:
+            raise Stop
+
+    try:
+        render_progressive(full, cfg, 8, 4, checkpoint_path=ck,
+                           on_batch=stop, accel=accel, device=DEV)
+        raise AssertionError("progressive render did not stop")
+    except Stop:
+        pass
+    seen = []
+    resumed = render_progressive(full, cfg, 8, 4, checkpoint_path=ck,
+                                 on_batch=lambda n, _i: seen.append(n),
+                                 accel=accel, device=DEV)
+    # index_add_ on CUDA sums a pixel's samples with atomics in no fixed
+    # order, so the last bits of a resumed batch may differ.
+    diff = float(np.abs(resumed - whole).max())
+    rel = diff / float(np.abs(whole).max())
+    if not (seen == [8] and np.isfinite(resumed).all() and rel <= 1e-6):
+        raise AssertionError(f"resumed render: batches {seen}, max |d| "
+                             f"{diff} ({rel} relative)")
+    launches = counts()
+    need_launches("progressive render", launches, SWEEP)
+
+    frame = full.replace(height=FRAME, width=FRAME)
+    orbit_cfg = T.RenderConfig(max_ray_depth=5, bounce_mode="roulette",
+                               intersector="sweep")
+    t0 = time.perf_counter()
+    imgs = render_animation(orbit_path(frame, 4), orbit_cfg,
+                            out_dir=os.path.join(tmp, "orbit"), accel=accel,
+                            device=DEV)
+    orbit_s = time.perf_counter() - t0
+    ppms = [open(os.path.join(tmp, "orbit", f"frame_{i:04d}.ppm"),
+                 "rb").read() for i in range(4)]
+    if len(set(ppms)) != 4 or not all(
+            read_ppm(os.path.join(tmp, "orbit", f"frame_{i:04d}.ppm")).shape
+            == (FRAME, FRAME, 3) for i in range(4)):
+        raise AssertionError("orbit frames are not 4 distinct PPMs")
+
+    hcfg = T.RenderConfig(samples_per_pixel=4, max_ray_depth=5,
+                          bounce_mode="roulette", intersector="sweep")
+    # The chunk that holds the image centre's first sample (the middle
+    # chunk of the tiled order lies on the image's left and right edges,
+    # where every ray misses).
+    ids = make_ray_chunks(full, hcfg)
+    centre = (full.height // 2 * full.width + full.width // 2) * 4
+    chunk = ids[int(np.nonzero((ids == centre).any(axis=1))[0][0])]
+    occ = wavefront_occupancy(full, hcfg, torch.from_numpy(chunk),
+                              accel=accel, device=DEV)
+    valid = int((chunk < full.height * full.width * 4).sum())
+    if not (occ[0] == valid and 0 < occ[1] < occ[0]
+            and all(a >= b for a, b in zip(occ, occ[1:]))):
+        raise AssertionError(f"occupancy {occ} of {valid} valid rays")
+
+    path = os.path.join(tmp, "cli.crtscene")
+    with open(path, "w") as f:
+        json.dump(mixed_doc(96, 128, g=32, subdiv=3), f)
+    out = os.path.join(tmp, "cli.ppm")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "simd_raytracer_tpu_torch", path, "-o", out,
+         "--intersector", "kdtree", "--scheduling", "bucket", "--profile"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0 or read_ppm(out).shape != (96, 128, 3):
+        raise AssertionError(f"CLI exit {proc.returncode}:\n{proc.stdout}"
+                             f"\n{proc.stderr[-4000:]}")
+    report("16 progressive, animation, occupancy, CLI",
+           progressive=dict(width=full.width, height=full.height,
+                            total_spp=8, spp_per_batch=4, whole_s=whole_s,
+                            resumed_batches=seen, max_abs_diff=diff,
+                            max_rel_diff=rel,
+                            bitwise_equal=bool(np.array_equal(resumed,
+                                                              whole))),
+           launches=launches,
+           orbit=dict(frames=len(imgs), size=FRAME, seconds=orbit_s,
+                      distinct_ppms=len(set(ppms))),
+           occupancy=occ, cli=dict(exit=proc.returncode, seconds=cli_s,
+                                   stdout=proc.stdout.strip().splitlines()))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -948,15 +1304,22 @@ def main() -> int:
     paths["12 refexact frame"], runs["refexact frame"] = phase_refexact(
         small, full, accel)
     phase_profile("13", runs)
+    kd_calls = phase_kd(full)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["15 kd frame"] = phase_refbin(tmp)
+        paths["16 progressive+orbit"] = phase_progressive(tmp, full, accel)
     for name, more in paths.items():
         if name[0] != "5":
             for k in launches:
                 launches[k] += more[k]
 
     # The kernel line: the sweep on the GI frame's full-reach secondary
-    # call, K1 on the 16,384-ray primary chunk (phase 6); `call` names it.
+    # call, K1 on the headline's 16,384-ray primary chunk (phase 6), the
+    # kd kernel on the kd frame's (phase 14); `call` names it.
+    calls.update(kd_calls)
     for kernel, what in ((K1, "K1 primary chunk (headline)"),
-                         (SWEEP, "sweep full-reach secondary (GI frame)")):
+                         (SWEEP, "sweep full-reach secondary (GI frame)"),
+                         (KD, "kd primary chunk (kd frame)")):
         call = calls[what]
         KERNELS[kernel].update(
             launches=launches[kernel], max_abs_err=MAX_ERR[kernel],

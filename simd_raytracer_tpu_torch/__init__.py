@@ -1,13 +1,15 @@
 """simd_raytracer_tpu_torch - simd_raytracer_tpu's render and training
 paths in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
-`.crtscene` loading, the flat scene model, camera rays, textures, the
-brute-force, block-sparse sweep and division-free "fast" selects, Whitted
-shading with diffuse GI and fast or march occlusion, the chunked wavefront
-render loop, and gradients and SGD steps (`ops.grad`), held against the
-JAX package of the same module paths and names.  On CUDA tensors the
-brute-force and sweep selects run the kernels in `csrc/` (built with nvcc
-at first use, see kernels.py); on CPU tensors their plain torch versions.
+`.crtscene` loading, the flat scene model, camera rays and moves,
+textures, the brute-force, block-sparse sweep, kd-tree and division-free
+"fast" selects, Whitted shading with diffuse GI and fast or march
+occlusion, the chunked wavefront render loop with the reference's tile
+schedules, gradients and SGD steps (`ops.grad`), progressive rendering,
+animation and profiling (`utils`), held against the JAX package of the
+same module paths and names.  On CUDA tensors the brute-force, sweep and
+kd selects run the kernels in `csrc/` (built with nvcc at first use, see
+kernels.py); on CPU tensors their plain torch versions.
 """
 
 from .config import DEFAULT_CONFIG, RenderConfig

@@ -1,11 +1,14 @@
 """Sweep acceleration data: the triangle soup cut into dense slices.
 
-Counterpart of `simd_raytracer_tpu.accel.sweep`.  Valid triangles are
-sorted along a 30-bit Morton curve of their centroids and cut into
-consecutive slices of SLICE_SIZE; each slice is a (9, SLICE_SIZE) SoA
-packet (v0, e1, e2 rows) with a tight AABB over its members.  The sweep
-select (ops/intersect_sweep.py) tests a ray tile only against the slices
-its interval boxes can reach, front to back.  Built in NumPy on the host.
+Counterpart of `simd_raytracer_tpu.accel.sweep`.  Slices of SLICE_SIZE
+triangles come either from the valid triangles sorted along a 30-bit
+Morton curve of their centroids ("morton", disjoint) or from the leaves of
+a deeper kd build ("kdleaf": a triangle touching a split plane sits in
+several slices; the selects merge on (t, global id), so a duplicate
+changes no winner).  Each slice is a (9, SLICE_SIZE) SoA packet (v0, e1,
+e2 rows) with a tight AABB over its members.  The sweep select
+(ops/intersect_sweep.py) tests a ray tile only against the slices its
+interval boxes can reach, front to back.  Built in NumPy on the host.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from ..models.scene import TensorStruct
-from .build import triangle_aabbs
+from .build import build_kdtree, scene_aabbs
 
 # Triangles per slice and rays per tile: the JAX package's defaults, and
 # the only shapes the CUDA sweep kernel is built for.
@@ -60,25 +63,34 @@ def _morton_order(tri_min: np.ndarray, tri_max: np.ndarray,
     return ids[np.argsort(code, kind="stable")]
 
 
-def build_sweep_for_scene(scene, partition: str = "morton") -> SweepData:
-    """Pack the scene's valid triangles into Morton-ordered slices.
+def build_sweep_for_scene(scene, partition: str = "morton",
+                          max_depth: int = 12,
+                          max_leaf: int = 128) -> SweepData:
+    """Pack the scene's valid triangles into slices.
 
-    Exactly ceil(T / SLICE_SIZE) disjoint slices; an empty slice gets an
-    inverted box (min > max) that the reach test culls.  Returns CPU
-    tensors; move them with `.to(device)`."""
-    if partition != "morton":
-        raise NotImplementedError(
-            f"partition={partition!r} needs the kd-tree build, which is not "
-            "ported yet (ROADMAP A11)")
+    "morton": exactly ceil(T / SLICE_SIZE) disjoint slices along the
+    Morton curve.  "kdleaf": each leaf of a kd build with `max_depth` and
+    `max_leaf` (JAX's defaults) cut into slices of SLICE_SIZE.  An empty
+    slice gets an inverted box (min > max) that the reach test culls.
+    Returns CPU tensors; move them with `.to(device)`."""
+    tri_min, tri_max, valid = scene_aabbs(scene)
     vertices = scene.vertices.detach().cpu().numpy().astype(np.float32)
     tri_vidx = scene.tri_vidx.cpu().numpy()
-    valid = scene.tri_valid.cpu().numpy()
-    tri_min, tri_max = triangle_aabbs(vertices, tri_vidx)
 
-    order = _morton_order(tri_min, tri_max,
-                          np.flatnonzero(valid).astype(np.int32))
-    slices = [order[s:s + SLICE_SIZE]
-              for s in range(0, len(order), SLICE_SIZE)]
+    if partition == "morton":
+        order = _morton_order(tri_min, tri_max,
+                              np.flatnonzero(valid).astype(np.int32))
+        slices = [order[s:s + SLICE_SIZE]
+                  for s in range(0, len(order), SLICE_SIZE)]
+    elif partition == "kdleaf":
+        tree = build_kdtree(tri_min, tri_max, valid, max_depth, max_leaf)
+        slices = []
+        for row in tree.leaf_tris.numpy():
+            tris = row[row >= 0]
+            slices += [tris[s:s + SLICE_SIZE]
+                       for s in range(0, len(tris), SLICE_SIZE)]
+    else:
+        raise ValueError(f"unknown partition {partition!r}")
     if not slices:
         slices.append(np.zeros(0, np.int32))
 

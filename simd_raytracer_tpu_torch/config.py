@@ -38,8 +38,9 @@ class RenderConfig:
     max_shadow_march: int = 8
     # Select backend.  "jnp" and "pallas" both run the brute-force select
     # (the hand-written CUDA kernel on a GPU), "sweep" the block-sparse
-    # slice sweep, "fast" the division-free bilinear select (plain torch).
-    # "mxu" and "kdtree" are not ported.
+    # slice sweep, "kdtree" the kd-tree walk (a CUDA kernel on a GPU; the
+    # t_max window emulated through refine), "fast" the division-free
+    # bilinear select (plain torch).  "mxu" is not ported.
     intersector: str = "jnp"
     # "split" follows the reference's full recursion tree; "roulette"
     # keeps one stochastically chosen child per ray.

@@ -119,6 +119,10 @@ def _bind(path: str) -> ctypes.CDLL:
     # split | eps, cull, any_hit | keys, stream
     lib.srt_sweep_select.argtypes = [p] * 8 + [i] * 3 + [f, i, i] + [p, p]
     lib.srt_sweep_select.restype = i
+    # o, d, tri, mask, node_box, node_link, leaf_tris | n_rays, n_nodes,
+    # cap | eps, cull | idx, hit, stream
+    lib.srt_kd_select.argtypes = [p] * 7 + [i] * 3 + [f, i] + [p] * 3
+    lib.srt_kd_select.restype = i
     return lib
 
 

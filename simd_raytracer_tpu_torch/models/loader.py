@@ -1,5 +1,6 @@
-"""`.crtscene` JSON scene loader (pure-Python path of
-`simd_raytracer_tpu.models.loader`, reference io/json/loader.hpp:236-265).
+"""`.crtscene` JSON scene loader (`simd_raytracer_tpu.models.loader`,
+reference io/json/loader.hpp:236-265): the Python parser, and the C++ one
+of `native/loader.cpp` through `..native`, which give the same Scene.
 
 Same quirks as the reference: `bucket_size` defaults to 64; a diffuse
 material whose `albedo` is a string becomes a texture material; UVs come as
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -137,9 +138,43 @@ def parse_scene_dict(doc: Dict[str, Any], base_dir: str = ".") -> Scene:
         height=height, width=width, bucket_size=bucket_size)
 
 
-def parse_scene_file(path: str) -> Scene:
-    """Parse a `.crtscene` file into a CPU Scene."""
+def _scene_from_native(raw: Dict[str, Any], base_dir: str) -> Scene:
+    """Assemble a Scene from the C++ loader's host arrays."""
+    textures = []
+    for td in raw["textures"]:
+        entry = {"tag": td["tag"], "color_a": td["color_a"],
+                 "color_b": td["color_b"], "param": td["param"]}
+        if td["tag"] == TEX_BITMAP:
+            entry["bitmap"] = _load_bitmap(
+                _resolve_bitmap_path(td["file_path"], base_dir))
+        textures.append(entry)
+    return build_scene(
+        mesh_vertices=[o["vertices"] for o in raw["objects"]],
+        mesh_tri_vidx=[o["triangles"] for o in raw["objects"]],
+        mesh_uvs=[o["uvs"] for o in raw["objects"]],
+        mesh_material=[o["material_index"] for o in raw["objects"]],
+        materials=raw["materials"], textures=textures,
+        lights=list(zip(raw["light_pos"], raw["light_intensity"].tolist())),
+        cam_pos=raw["cam_pos"], cam_mat=raw["cam_mat"],
+        background=raw["background"], height=raw["height"],
+        width=raw["width"], bucket_size=raw["bucket_size"])
+
+
+def parse_scene_file(path: str, use_native: Optional[bool] = None) -> Scene:
+    """Parse a `.crtscene` file into a CPU Scene.
+
+    use_native: True forces the C++ loader (raising where its library
+    cannot be built), False the Python one; None takes the C++ loader when
+    its library builds.  Both give the same Scene."""
     base_dir = os.path.dirname(os.path.abspath(path))
+    if use_native is None or use_native:
+        from ..native import native_parse_scene
+        raw = native_parse_scene(path)
+        if raw is not None:
+            return _scene_from_native(raw, base_dir)
+        if use_native:
+            raise RuntimeError("native loader requested, but its library "
+                               "could not be built")
     with open(path, "r") as f:
         doc = json.load(f)
     return parse_scene_dict(doc, base_dir=base_dir)

@@ -145,6 +145,32 @@ def pack_triangles(v0, e1, e2) -> torch.Tensor:
     return torch.cat([v0.T, e1.T, e2.T], dim=0).float().contiguous()
 
 
+def vertex_sums(n_vertices: int, idx: torch.Tensor, valid: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """(V, 3) sums of each valid triangle's row of `rows` (T, 3) into its
+    three corner vertices, added in the order of index_add over corner 0,
+    1, then 2 with triangles ascending, as the CPU adds them, but through
+    gathers: index_add on CUDA adds with atomics in no fixed order, and
+    the vertex normals (then the shading) would change in the last bits
+    from run to run."""
+    t = idx.shape[0]
+    dev = rows.device
+    vid = idx.T.reshape(-1)                    # corner-major: c * T + tri
+    pos = torch.arange(3 * t, device=dev)[valid.repeat(3)]
+    vid = vid[pos]
+    order = torch.argsort(vid, stable=True)
+    vid, src = vid[order], rows[pos[order] % t]
+    counts = torch.bincount(vid, minlength=n_vertices)
+    starts = torch.cumsum(counts, 0) - counts
+    out = torch.zeros((n_vertices, rows.shape[1]), dtype=rows.dtype,
+                      device=dev)
+    for j in range(int(counts.max()) if vid.numel() else 0):
+        has = counts > j
+        take = src[(starts + j).clamp_max(vid.numel() - 1)]
+        out = out + torch.where(has[:, None], take, 0.0)
+    return out
+
+
 def derive_geometry(scene: Scene) -> Geometry:
     """Edges, face normals and area-unweighted vertex normals (the
     normalised sum of adjacent unit face normals, mesh.hpp:33-43)."""
@@ -155,10 +181,7 @@ def derive_geometry(scene: Scene) -> Geometry:
     e2 = p2 - p0
     face_n = safe_normalize(cross3(e1, e2))
 
-    contrib = face_n * scene.tri_valid[:, None].to(face_n.dtype)
-    vn_accum = torch.zeros_like(v)
-    for corner in range(3):
-        vn_accum = vn_accum.index_add(0, idx[:, corner], contrib)
+    vn_accum = vertex_sums(v.shape[0], idx, scene.tri_valid, face_n)
     vn = safe_normalize(vn_accum)[idx]          # (T, 3, 3)
 
     tri_transmissive = scene.mat_tag[scene.tri_mat.long()] == MAT_REFRACTIVE

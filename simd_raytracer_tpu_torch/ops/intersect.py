@@ -173,8 +173,9 @@ def make_select_fn(intersector: str, accel=None,
     "jnp" and "pallas" both resolve to the brute-force select, which runs
     the CUDA kernel on a GPU and its plain version on the CPU, bound to
     `geom`'s packed triangles when given; "sweep" binds the SweepData
-    given as `accel`; "fast" is the division-free bilinear select, plain
-    torch on every device (its JAX counterpart is jnp code, no kernel)."""
+    given as `accel`; "kdtree" the KdTree given as `accel` (the kd kernel
+    on a GPU); "fast" is the division-free bilinear select, plain torch on
+    every device (its JAX counterpart is jnp code, no kernel)."""
     if intersector in ("jnp", "pallas"):
         from .intersect_brute import mt_select_brute
         if geom is None:
@@ -190,12 +191,31 @@ def make_select_fn(intersector: str, accel=None,
         from .intersect_fast import mt_select_fast
         return mt_select_fast
     if intersector == "kdtree":
-        raise NotImplementedError(
-            "intersector='kdtree' is not ported yet (ROADMAP A11)")
+        if accel is None:
+            raise ValueError("intersector='kdtree' needs an accel: build one "
+                             "with accel.build.build_kdtree_for_scene")
+        return functools.partial(_kd_window_select, tree=accel)
     if intersector == "mxu":
         raise NotImplementedError(
             "intersector='mxu' is not ported (ROADMAP A14)")
     raise ValueError(intersector)
+
+
+def _kd_window_select(o, d, v0, e1, e2, eps, cull, tri_mask=None,
+                      t_max=None, any_hit=False, *, tree):
+    """The kd select under the common contract, as the JAX package
+    emulates it: the closest hit first; with a window, the winner's
+    refined t decides `hit &= t <= t_max` (the window is not applied
+    inside the walk); with any_hit, idx is zeros."""
+    from .intersect_kd import kd_select_cuda
+    idx, hit = kd_select_cuda(o, d, v0, e1, e2, eps, cull, tri_mask, tree)
+    if t_max is not None:
+        gidx = idx.long()
+        t, _, _ = mt_refine(o, d, v0[gidx], e1[gidx], e2[gidx], eps)
+        hit = hit & (t <= t_max)
+    if any_hit:
+        idx = torch.zeros_like(idx)
+    return idx, hit
 
 
 def trace(o: torch.Tensor, d: torch.Tensor, scene: Scene, geom: Geometry,

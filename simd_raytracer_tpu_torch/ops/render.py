@@ -75,7 +75,7 @@ def check_supported(cfg: RenderConfig) -> None:
     ValueError for a negative epsilon (the selects' key merge needs t >= 0)
     on every device."""
     check_eps(cfg.epsilon)
-    if cfg.intersector != "sweep":
+    if cfg.intersector not in ("sweep", "kdtree"):
         make_select_fn(cfg.intersector)   # raises for the unported ones
 
 
@@ -87,12 +87,15 @@ def _scatter_rows(n: int, idx: torch.Tensor, vals: torch.Tensor,
 
 
 def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
-                 ray_ids: torch.Tensor, uniforms, accel=None) -> torch.Tensor:
+                 ray_ids: torch.Tensor, uniforms, accel=None,
+                 occupancy: Optional[list] = None) -> torch.Tensor:
     """Render one chunk of global (pixel, sample) ray ids -> (R0, 3) colors.
 
     Ids >= H*W*spp are padding and contribute zero.  `uniforms` has
     `jitter(n)`, `coin(depth, n)` and `gi(depth, n, count)` (TorchUniforms
-    or an injected source).
+    or an injected source).  occupancy: a list that receives the number of
+    live rays entering each bounce (utils/profiling.py::
+    wavefront_occupancy).
     """
     check_supported(cfg)
     r0 = ray_ids.shape[0]
@@ -132,6 +135,8 @@ def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
             rnd_gi = torch.as_tensor(uniforms.gi(depth, n_cur, gi_count),
                                      dtype=dtype, device=dev)
         alive = (weight > 0.0).nonzero()[:, 0]
+        if occupancy is not None:
+            occupancy.append(alive.numel())
         if alive.numel() == 0:
             break
 
@@ -185,10 +190,26 @@ def _tiled_ids(h: int, w: int, spp: int, block: int = TILE_BLOCK
     return ids.reshape(-1)
 
 
-def make_ray_chunks(scene: Scene, cfg: RenderConfig) -> np.ndarray:
-    """(C, R0) int32 ray ids covering H*W*spp, padded with invalid ids."""
+def make_ray_chunks(scene: Scene, cfg: RenderConfig,
+                    scheduling=None) -> np.ndarray:
+    """(C, R0) int32 ray ids covering H*W*spp, padded with invalid ids.
+
+    scheduling: None (cfg.ray_order: linear pixel order or 32x32-block
+    tiled order) or a parallel.tiles.SchedulingType, the reference's tile
+    orders (single, region grid, bucket tiles; tile/*.hpp) with the scene's
+    bucket size.  A region grid has one region per CUDA device when the
+    scene lies on a card, one otherwise.  The estimator is the same in
+    every order; the order moves which ids share a chunk."""
     total = scene.height * scene.width * cfg.samples_per_pixel
     r0 = cfg.chunk_size
+    if scheduling is not None:
+        from ..parallel.tiles import make_schedule, schedule_to_chunks
+        workers = (torch.cuda.device_count() if scene.vertices.is_cuda
+                   else 1)
+        tiles = make_schedule(scheduling, scene.height, scene.width,
+                              bucket=scene.bucket_size, workers=workers)
+        return schedule_to_chunks(tiles, scene.width,
+                                  cfg.samples_per_pixel, r0, total)
     if resolved_ray_order(cfg) == "tiled":
         ids = _tiled_ids(scene.height, scene.width, cfg.samples_per_pixel)
         c = -(-ids.size // r0)
@@ -198,24 +219,39 @@ def make_ray_chunks(scene: Scene, cfg: RenderConfig) -> np.ndarray:
     return np.arange(c * r0, dtype=np.int32).reshape(c, r0)
 
 
+def build_accel(scene: Scene, cfg: RenderConfig):
+    """The accelerator cfg.intersector needs, built from the scene on the
+    host (CPU tensors): a KdTree for "kdtree" (the reference builds its
+    kd_tree_simd_accel once per run, src/main.cpp:41), SweepData for
+    "sweep", None otherwise."""
+    if cfg.intersector == "kdtree":
+        from ..accel.build import build_kdtree_for_scene
+        return build_kdtree_for_scene(scene)
+    if cfg.intersector == "sweep":
+        from ..accel.sweep import build_sweep_for_scene
+        return build_sweep_for_scene(scene)
+    return None
+
+
 def render_frame(scene: Scene, cfg: RenderConfig = RenderConfig(), *,
                  device="cuda", accel=None,
-                 uniforms: Optional[Callable[[int], object]] = None
-                 ) -> torch.Tensor:
+                 uniforms: Optional[Callable[[int], object]] = None,
+                 scheduling=None) -> torch.Tensor:
     """Full-frame render on `device` (the card unless the caller asks for
     "cpu") -> (H, W, 3) linear color.
 
-    accel: SweepData for intersector="sweep" (built from the scene when
-    None).  uniforms: chunk index -> uniform source for that chunk; by
-    default one torch.Generator on `device`, seeded with cfg.rng_seed,
-    serves every chunk in order."""
+    accel: KdTree for intersector="kdtree", SweepData for "sweep" (built
+    from the scene when None).  uniforms: chunk index -> uniform source
+    for that chunk; by default one torch.Generator on `device`, seeded
+    with cfg.rng_seed, serves every chunk in order.  scheduling: a
+    parallel.tiles.SchedulingType to walk the image in the reference's
+    tile order (see make_ray_chunks)."""
     check_supported(cfg)
     dev = resolve_device(device)
     scene = scene.to(dev)
-    if cfg.intersector == "sweep":
-        if accel is None:
-            from ..accel.sweep import build_sweep_for_scene
-            accel = build_sweep_for_scene(scene)
+    if accel is None:
+        accel = build_accel(scene, cfg)
+    if accel is not None:
         accel = accel.to(dev)
     geom = derive_geometry(scene)
     dtype = scene.vertices.dtype
@@ -227,7 +263,7 @@ def render_frame(scene: Scene, cfg: RenderConfig = RenderConfig(), *,
 
     h, w, spp = scene.height, scene.width, cfg.samples_per_pixel
     total = h * w * spp
-    ids = torch.from_numpy(make_ray_chunks(scene, cfg)).to(dev)
+    ids = torch.from_numpy(make_ray_chunks(scene, cfg, scheduling)).to(dev)
     accum = torch.zeros((h * w, 3), dtype=dtype, device=dev)
     for c in range(ids.shape[0]):
         chunk = ids[c]

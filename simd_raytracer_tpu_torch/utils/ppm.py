@@ -2,12 +2,14 @@
 (reference: include/raytracer/io/image/ppm.hpp:7-25) and with
 `simd_raytracer_tpu.utils.ppm`: header `P3`, `W H`, `255`, then one image
 row per line with `R G B\t` per pixel, each channel
-`uint8(255.999 * clamp(c, 0, 1))` (truncating cast), in float32.
+`uint8(255.999 * clamp(c, 0, 1))` (truncating cast), in float32.  The C++
+encoder of `native/ppm.cpp` (through `..native`) writes the same bytes.
 """
 
 from __future__ import annotations
 
 import io
+from typing import Optional
 
 import numpy as np
 
@@ -33,7 +35,18 @@ def write_ppm(img, stream) -> None:
         stream.write("".join(f"{r} {g} {b}\t" for r, g, b in row) + "\n")
 
 
-def ppm_bytes(img) -> bytes:
+def ppm_bytes(img, use_native: Optional[bool] = None) -> bytes:
+    """Encode to P3 bytes.  use_native: True forces the C++ encoder
+    (raising where its library cannot be built), False the Python one;
+    None takes the C++ encoder when its library builds."""
+    if use_native is None or use_native:
+        from ..native import native_ppm_encode
+        out = native_ppm_encode(_to_numpy(img))
+        if out is not None:
+            return out
+        if use_native:
+            raise RuntimeError("native PPM encoder requested, but its "
+                               "library could not be built")
     buf = io.StringIO()
     write_ppm(img, buf)
     return buf.getvalue().encode()

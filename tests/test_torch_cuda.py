@@ -17,9 +17,12 @@ import torch
 
 import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu_torch import kernels
+from simd_raytracer_tpu_torch.accel.build import build_kdtree_for_scene
 from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
+from simd_raytracer_tpu_torch.accel.traverse import kd_select
 from simd_raytracer_tpu_torch.ops import grad as G
-from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
+from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_kd,
+                                          intersect_sweep)
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
 from simd_raytracer_tpu_torch.ops.shade import occluded
 from torch_scenes import SeededUniforms, mixed_doc
@@ -312,3 +315,84 @@ def test_march_on_cuda_matches_cpu(scene, intersector):
                    None if acc is None else acc.to("cpu"))
     gpu = occluded(o.to(DEV), d.to(DEV), tmax.to(DEV), s, g, cfg, acc)
     assert torch.equal(gpu.cpu(), cpu) and 0 < int(cpu.sum()) < len(cpu)
+
+
+@pytest.fixture(scope="module")
+def kdtree(scene):
+    s, _, _ = scene
+    return build_kdtree_for_scene(s).to(DEV)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kd_select_kernel_matches_plain(scene, kdtree, cull, masked):
+    """The kd kernel against the plain walk on the same CUDA tensors, and
+    against the brute-force kernel's winners."""
+    s, g, _ = scene
+    o, d, _ = rays(s.cam_pos, 3000, seed=11)
+    mask = g.tri_valid & ~g.tri_transmissive if masked else g.tri_valid
+    args = (o, d, g.v0, g.e1, g.e2, EPS, cull, mask, kdtree)
+    before = intersect_kd.LAUNCHES
+    got = intersect_kd.kd_select_cuda(*args)
+    assert intersect_kd.LAUNCHES == before + 1
+    assert_equal(got, kd_select(*args))
+    assert 0 < int(got[1].sum()) < len(o)
+    brute = intersect_brute.mt_select_brute(o, d, g.v0, g.e1, g.e2, EPS,
+                                            cull, mask)
+    assert torch.equal(got[1], brute[1])
+    assert torch.equal(got[0][got[1]], brute[0][brute[1]])
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kd_window_select_on_cuda_matches_cpu(scene, kdtree, any_hit):
+    """make_select_fn("kdtree") with a t_max window: the kernel's winner
+    refined on the card gives the CPU's answer."""
+    s, g, _ = scene
+    o, d, tmax = rays(s.cam_pos, 2000, seed=12)
+    sel = make_select_fn("kdtree", kdtree)
+    got = sel(o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, tmax,
+              any_hit)
+    sc = s.to("cpu")
+    gc = T.derive_geometry(sc)
+    ref = make_select_fn("kdtree", kdtree.to("cpu"))(
+        o.cpu(), d.cpu(), gc.v0, gc.e1, gc.e2, EPS, False, gc.tri_valid,
+        tmax.cpu(), any_hit)
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert torch.equal(got[0].cpu(), ref[0])
+
+
+def test_kdtree_and_kdleaf_renders_on_cuda_match_cpu(scene):
+    """A bucket-scheduled kdtree render and a kdleaf sweep render on CUDA
+    against the same on the CPU."""
+    from simd_raytracer_tpu_torch.parallel.tiles import SchedulingType
+    s, _, _ = scene
+    uniforms = lambda c: SeededUniforms(4, c)   # noqa: E731
+    for cfg, accel, sched in (
+            (T.RenderConfig(max_ray_depth=3, chunk_size=1024,
+                            intersector="kdtree"), None,
+             SchedulingType.BUCKET_TILES),
+            (T.RenderConfig(max_ray_depth=3, chunk_size=1024,
+                            samples_per_pixel=2, bounce_mode="roulette",
+                            intersector="sweep"),
+             build_sweep_for_scene(s, partition="kdleaf"), None)):
+        before = intersect_kd.LAUNCHES + intersect_sweep.LAUNCHES
+        gpu = T.render_frame(s, cfg, device=DEV, accel=accel,
+                             uniforms=uniforms, scheduling=sched)
+        assert intersect_kd.LAUNCHES + intersect_sweep.LAUNCHES > before
+        cpu = T.render_frame(s, cfg, device="cpu", accel=accel,
+                             uniforms=uniforms, scheduling=sched)
+        torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4)
+
+
+def test_kd_wrapper_rejects_bad_input(scene, kdtree):
+    s, g, _ = scene
+    o, d, _ = rays(s.cam_pos, 64, seed=13)
+    with pytest.raises(ValueError):
+        intersect_kd.kd_select_cuda(o, d[:10], g.v0, g.e1, g.e2, EPS, True,
+                                    None, kdtree)
+    with pytest.raises(ValueError, match="to\\(device\\)"):
+        intersect_kd.kd_select_cuda(o, d, g.v0, g.e1, g.e2, EPS, True, None,
+                                    kdtree.to("cpu"))
+    with pytest.raises(ValueError, match="stack"):
+        intersect_kd.kd_select_cuda(o, d, g.v0, g.e1, g.e2, EPS, True, None,
+                                    kdtree.replace(depth=63))

@@ -82,7 +82,6 @@ def test_cpu_render_launches_no_kernel(scenes):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(intersector="kdtree"), "A11"),
     (dict(intersector="mxu"), "A14"),
 ])
 def test_unported_configs_raise(scenes, kw, item):
@@ -118,7 +117,15 @@ def test_import_pulls_in_no_jax():
             "simd_raytracer_tpu_torch.__main__, "
             "simd_raytracer_tpu_torch.ops.render, "
             "simd_raytracer_tpu_torch.ops.grad, "
-            "simd_raytracer_tpu_torch.ops.intersect_fast; "
+            "simd_raytracer_tpu_torch.ops.intersect_fast, "
+            "simd_raytracer_tpu_torch.ops.intersect_kd, "
+            "simd_raytracer_tpu_torch.accel.traverse, "
+            "simd_raytracer_tpu_torch.parallel.tiles, "
+            "simd_raytracer_tpu_torch.models.camera, "
+            "simd_raytracer_tpu_torch.utils.animation, "
+            "simd_raytracer_tpu_torch.utils.checkpoint, "
+            "simd_raytracer_tpu_torch.utils.profiling, "
+            "simd_raytracer_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'simd_raytracer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
