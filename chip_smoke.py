@@ -4,6 +4,8 @@
     python3 chip_smoke.py          # from the repository root
     python3 chip_smoke.py --fill-targets   # phase 6 also times the split's
                                            # fill targets
+    python3 chip_smoke.py --kd-shapes      # phase 14 also times every shape
+                                           # of the kd kernel
 
 Builds the port's CUDA kernels from `simd_raytracer_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, drives the render path
@@ -22,7 +24,8 @@ Phases, one result line each:
      the camera call timed against its plain version and its bound;
   4. a small render on the CPU (plain versions) and on CUDA (kernels), with
      the same uniforms: images within 1e-4;
-  5. full-size renders on CUDA, with every kernel launch counted;
+  5. full-size renders on CUDA, with every kernel launch counted; the
+     frames of each config (the headline's at spp 4) bitwise equal;
   6. each kernel on the calls that dominate the paths (captured from one
      headline, GI and default frame: the GI frame's full-reach secondary
      sweep call, the headline's largest shadow sweep call, the default
@@ -54,17 +57,22 @@ Phases, one result line each:
  14. the kd-tree of the full scene built by NumPy and by the native
      builder (equal arrays); the kd kernel exact against its plain
      version on the middle 16,384-ray primary chunk of phase 15's bucket
-     order and on the largest shadow call of a 480x480 kd frame, timed
-     against its bound (the live leaf lanes the walk tests x 54 over 67
-     TFLOP/s) and beside K1 on the same calls; the kd kernel and a kdleaf
-     sweep against K1 on 8,192 random rays;
+     order, on the same rays in a seeded random order and on the largest
+     shadow call of a 480x480 kd frame, timed against its bound (the live
+     leaf lanes the walk tests x 54 over 67 TFLOP/s) and beside K1 on the
+     same calls, with the kernel's counter (triangles staged, pair slots
+     run over pairs needed; its pair tests must equal the walk's); with
+     --kd-shapes, every instantiated shape of the kd kernel on those
+     calls; the kd kernel and a kdleaf sweep against K1 on 8,192 random
+     rays;
  15. the reference binary's path at full width: parse, native kd build,
      a 960x960 spp 1 depth 5 split frame through the kd kernel in bucket
-     tiles, save_ppm; held against the brute-force frame (max |d| 1e-4,
-     PPM channels off by at most 1 on at most 0.1%), timed and profiled;
+     tiles (two frames, bitwise equal), save_ppm; held against the
+     brute-force frame (max |d| 1e-4, PPM channels off by at most 1 on at
+     most 0.1%), timed and profiled;
  16. render_progressive of the headline config at 8 spp in batches of 4,
-     stopped after one batch and resumed from its checkpoint (within 1e-6
-     relative of the whole render); a 4-frame orbit at 480x480; the
+     stopped after one batch and resumed from its checkpoint (bitwise
+     equal to the whole render); a 4-frame orbit at 480x480; the
      wavefront occupancy of one headline chunk; the CLI with
      --intersector kdtree --scheduling bucket --profile.
 Phases 5, 8-12, 15 and 16 each count the kernel launches of their own
@@ -350,13 +358,21 @@ def render_timed(label, scene, cfg, accel=None, frames=3, phase="5"):
     """One warm frame, then `frames` timed ones; checks the image."""
     import simd_raytracer_tpu_torch as T
     before = counts()
-    times = []
+    times, first = [], None
     for i in range(frames + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = T.render_frame(scene, cfg, device=DEV, accel=accel)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        # The same config and seed: every frame is bitwise the first.
+        if first is None:
+            first = img
+        elif not torch.equal(img, first):
+            raise AssertionError(
+                f"{label}: two CUDA renders differ: max |d| "
+                f"{float((img - first).abs().max())} on "
+                f"{int((img != first).any(dim=-1).sum())} pixels")
     bg = scene.background.to(DEV)
     not_bg = float((img != bg).any(dim=-1).float().mean())
     if not (img.shape == (scene.height, scene.width, 3)
@@ -370,7 +386,8 @@ def render_timed(label, scene, cfg, accel=None, frames=3, phase="5"):
            spp=cfg.samples_per_pixel, depth=cfg.max_ray_depth,
            bounce_mode=cfg.bounce_mode, intersector=cfg.intersector,
            warm_s=times[0], frame_s=times[1:], primary_rays_per_s=rays / mean,
-           non_background=not_bg, launches=launches)
+           non_background=not_bg, bitwise_equal_frames=frames + 1,
+           launches=launches)
     return img, launches, mean
 
 
@@ -943,32 +960,73 @@ def phase_refexact(small, full, accel):
     return launches, (frame_run(frame, cfg, accel), frame_s, True)
 
 
-def kd_call(label, a, tree):
+def kd_args(a, tree):
+    return (a["o"], a["d"], a["v0"], a["e1"], a["e2"], a["eps"], a["cull"],
+            a["tri_mask"], tree)
+
+
+def kd_call(label, a, tree, pack):
     """Hold the kd kernel on one call exactly against its plain version
-    (accel/traverse.py::kd_select on the same CUDA tensors); time both;
+    (accel/traverse.py::kd_select on the same CUDA tensors); time both,
+    the kernel with the frame's pack bound as the render path binds it;
     bound: the live leaf lanes the walk tests (kd_work_pairs) x 54 float
-    operations over 67 TFLOP/s, or the bytes it must move."""
+    operations over 67 TFLOP/s, or the bytes it must move.  The kernel's
+    counter gives the triangles its blocks staged, the pair slots their
+    leaf rounds ran and the pair tests run (which must equal the walk's
+    pairs)."""
     from simd_raytracer_tpu_torch.accel.traverse import (kd_select,
                                                          kd_work_pairs)
-    from simd_raytracer_tpu_torch.ops.intersect_kd import kd_select_cuda
-    args = (a["o"], a["d"], a["v0"], a["e1"], a["e2"], a["eps"], a["cull"],
-            a["tri_mask"], tree)
-    got = kd_select_cuda(*args)
+    from simd_raytracer_tpu_torch.ops import intersect_kd as KDM
+    args = kd_args(a, tree)
+    counter = torch.zeros(3, dtype=torch.int64, device=DEV)
+    got = KDM.kd_select_cuda(*args, pack, counter=counter)
     exact(KD, label, got, kd_select(*args))
     pairs = kd_work_pairs(*args)
-    ms, plain_ms, runs = time_call(lambda: kd_select_cuda(*args),
+    staged, slots, tested = counter.tolist()
+    if tested != pairs:
+        raise AssertionError(f"{label}: the kernel ran {tested} pair tests, "
+                             f"the walk needs {pairs}")
+    ms, plain_ms, runs = time_call(lambda: KDM.kd_select_cuda(*args, pack),
                                    lambda: kd_select(*args), 10)
     r, t = a["o"].shape[0], a["v0"].shape[0]
-    # o, d in and idx, hit out: 29 bytes a ray; the packed triangle and
-    # its mask: 40 bytes; the node records and the leaf lists.
-    n_bytes = (29 * r + 40 * t + 40 * tree.num_nodes
-               + 4 * tree.leaf_tris.numel())
+    # o, d in and idx, hit out: 29 bytes a ray; the mask: 4 bytes a
+    # triangle; the pack: node records, 40 bytes and an id per packed
+    # triangle, leaf offsets and lengths.
+    n_bytes = 29 * r + 4 * t + nbytes(pack.box, pack.link, pack.tri,
+                                      pack.ids, pack.leaf_tile, pack.leaf_len)
     b_ms, by = bound(pairs, n_bytes)
     return dict(kind=ray_kind(a.get("any_hit", False), a["cull"]), rays=r,
                 hits=int(got[1].sum()), ms=ms, runs_ms=runs,
                 plain_ms=plain_ms, pairs_needed=pairs,
                 pairs_per_ray=pairs / max(r, 1), bound_ms=b_ms, bound_by=by,
-                share_of_bound=b_ms / ms, exact=True)
+                share_of_bound=b_ms / ms, triangles_staged=staged,
+                pair_slots_run=slots, pairs_run_over_needed=slots / pairs,
+                rays_per_block=KDM.KD_SHAPE[0],
+                lanes_per_ray=KDM.KD_SHAPE[1], exact=True)
+
+
+def kd_shapes(calls, tree, pack):
+    """With --kd-shapes only: every instantiated (rays per block, lanes
+    per ray) shape of the kd kernel on each call of phase 14, exact
+    against the shape the wrapper launches; ms per call (the measurement
+    behind ops/intersect_kd.py::KD_SHAPE, PERF.md)."""
+    from simd_raytracer_tpu_torch.ops import intersect_kd as KDM
+    ref = {what: KDM.kd_select_cuda(*kd_args(a, tree), pack)
+           for what, a in calls.items()}
+    keep, out = KDM.KD_SHAPE, {}
+    try:
+        for shape in KDM.KD_SHAPES + KDM.KD_SHAPES[::-1]:
+            KDM.KD_SHAPE = shape
+            row = out.setdefault(f"{shape[0]}x{shape[1]}", {})
+            for what, a in calls.items():
+                args = kd_args(a, tree)
+                exact(KD, f"kd shape {shape} {what}",
+                      KDM.kd_select_cuda(*args, pack), ref[what])
+                row.setdefault(what, []).append(event_ms(
+                    lambda: KDM.kd_select_cuda(*args, pack), 5))
+    finally:
+        KDM.KD_SHAPE = keep
+    return out
 
 
 def kd_config():
@@ -992,7 +1050,8 @@ def phase_kd(scene):
     from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
     from simd_raytracer_tpu_torch.ops import intersect as I
     from simd_raytracer_tpu_torch.ops.intersect_brute import mt_select_brute
-    from simd_raytracer_tpu_torch.ops.intersect_kd import kd_select_cuda
+    from simd_raytracer_tpu_torch.ops.intersect_kd import (kd_select_cuda,
+                                                           pack_kd)
     from simd_raytracer_tpu_torch.ops.intersect_sweep import (
         make_sweep_select)
     from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
@@ -1030,17 +1089,26 @@ def phase_kd(scene):
         frame, kd_config(), device=DEV, accel=tree,
         scheduling=SchedulingType.BUCKET_TILES), I, "_kd_window_select",
         kind_of)
-    calls = {"kd primary chunk (kd frame)": kd_call("kd primary chunk",
-                                                    primary, tree),
-             "kd shadow (480x480 kd frame)": kd_call(
-                 "kd shadow", kept["shadow"], tree)}
+    # The same chunk with its rays in a seeded random order: the worst
+    # case for a block's rays sharing leaves.
+    perm = torch.from_numpy(np.random.default_rng(14).permutation(len(o))
+                            ).to(DEV)
+    shuffled = dict(primary, o=o[perm].contiguous(), d=d[perm].contiguous())
+    inputs = {"kd primary chunk (kd frame)": primary,
+              "kd primary chunk shuffled (kd frame)": shuffled,
+              "kd shadow (480x480 kd frame)": kept["shadow"]}
+    pack = pack_kd(tree, geom.v0, geom.e1, geom.e2)
+    pack_ms = event_ms(lambda: pack_kd(tree, geom.v0, geom.e1, geom.e2), 5)
+    calls = {what: kd_call(what, a, tree, pack) for what, a in inputs.items()}
     # K1 on the same calls, for comparison.
-    for what, a in (("kd primary chunk (kd frame)", primary),
-                    ("kd shadow (480x480 kd frame)", kept["shadow"])):
+    for what, a in inputs.items():
         calls[what]["k1_ms_same_call"] = event_ms(lambda: mt_select_brute(
             a["o"], a["d"], a["v0"], a["e1"], a["e2"], EPS, a["cull"],
             a["tri_mask"], a.get("t_max"), a.get("any_hit", False),
             tri_soa=geom.tri_soa), 5)
+    more = {}
+    if "--kd-shapes" in sys.argv[1:]:
+        more["shape_ms"] = kd_shapes(inputs, tree, pack)
 
     o, d, tmax = random_rays(scene, 8192, seed=14)
     sweep = build_sweep_for_scene(host, partition="kdleaf").to(DEV)
@@ -1072,9 +1140,12 @@ def phase_kd(scene):
            leaves=int((tree.leaf_id >= 0).sum()), depth=tree.depth,
            leaf_cap=tree.leaf_cap, leaf_refs=int(leaf_lens.sum()),
            leaf_median=float(leaf_lens.float().median()),
-           leaf_max=int(leaf_lens.max()), calls=calls,
-           random_rays=len(o), hits_vs_k1=vs_k1,
-           kdleaf_slices=sweep.num_slices, exact=True)
+           leaf_max=int(leaf_lens.max()), packed_tiles=pack.ids.shape[0],
+           pack_bytes=nbytes(pack.box, pack.link, pack.tri, pack.ids,
+                             pack.leaf_tile, pack.leaf_len),
+           pack_ms=pack_ms, calls=calls, random_rays=len(o),
+           hits_vs_k1=vs_k1, kdleaf_slices=sweep.num_slices, exact=True,
+           **more)
     return calls
 
 
@@ -1105,15 +1176,18 @@ def phase_refbin(tmp):
                               scheduling=sched)
 
     counts_reset()
-    times = []
+    times, imgs = [], []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img = run()
+        imgs.append(run())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = counts()
     need_launches("kd frame", launches, KD)
+    img = imgs[1]
+    if not torch.equal(imgs[0], img):
+        raise AssertionError("kd frame: two CUDA renders differ")
     out = os.path.join(tmp, "refbin.ppm")
     with timer.phase("save_ppm"):
         T.save_ppm(img, out)
@@ -1129,6 +1203,7 @@ def phase_refbin(tmp):
     pixels = int((got != ref).any(dim=-1).sum())
     fields = dict(width=REFBIN, height=REFBIN, spp=1, depth=5,
                   bucket=scene.bucket_size, warm_s=times[0], frame_s=times[1],
+                  bitwise_equal_frames=2,
                   primary_rays_per_s=REFBIN * REFBIN / times[1],
                   phases_s=dict(timer.seconds), launches=launches,
                   vs_brute_force=dict(max_abs_err=err,
@@ -1194,11 +1269,12 @@ def phase_progressive(tmp, full, accel):
     resumed = render_progressive(full, cfg, 8, 4, checkpoint_path=ck,
                                  on_batch=lambda n, _i: seen.append(n),
                                  accel=accel, device=DEV)
-    # index_add_ on CUDA sums a pixel's samples with atomics in no fixed
-    # order, so the last bits of a resumed batch may differ.
+    # Batch b is seeded from (seed, b) alone and the fold-back adds in a
+    # fixed order, so the resumed render is bitwise the whole one.
     diff = float(np.abs(resumed - whole).max())
     rel = diff / float(np.abs(whole).max())
-    if not (seen == [8] and np.isfinite(resumed).all() and rel <= 1e-6):
+    if not (seen == [8] and np.isfinite(resumed).all()
+            and np.array_equal(resumed, whole)):
         raise AssertionError(f"resumed render: batches {seen}, max |d| "
                              f"{diff} ({rel} relative)")
     launches = counts()

@@ -174,7 +174,8 @@ def make_select_fn(intersector: str, accel=None,
     the CUDA kernel on a GPU and its plain version on the CPU, bound to
     `geom`'s packed triangles when given; "sweep" binds the SweepData
     given as `accel`; "kdtree" the KdTree given as `accel` (the kd kernel
-    on a GPU); "fast" is the division-free bilinear select, plain torch on
+    on a GPU, bound to the pack of the tree and `geom`'s triangles, built
+    once for the pair); "fast" is the division-free bilinear select, plain torch on
     every device (its JAX counterpart is jnp code, no kernel)."""
     if intersector in ("jnp", "pallas"):
         from .intersect_brute import mt_select_brute
@@ -194,7 +195,11 @@ def make_select_fn(intersector: str, accel=None,
         if accel is None:
             raise ValueError("intersector='kdtree' needs an accel: build one "
                              "with accel.build.build_kdtree_for_scene")
-        return functools.partial(_kd_window_select, tree=accel)
+        pack = None
+        if geom is not None:
+            from .intersect_kd import packed
+            pack = packed(accel, geom)
+        return functools.partial(_kd_window_select, tree=accel, pack=pack)
     if intersector == "mxu":
         raise NotImplementedError(
             "intersector='mxu' is not ported (ROADMAP A14)")
@@ -202,13 +207,15 @@ def make_select_fn(intersector: str, accel=None,
 
 
 def _kd_window_select(o, d, v0, e1, e2, eps, cull, tri_mask=None,
-                      t_max=None, any_hit=False, *, tree):
+                      t_max=None, any_hit=False, *, tree, pack=None):
     """The kd select under the common contract, as the JAX package
     emulates it: the closest hit first; with a window, the winner's
     refined t decides `hit &= t <= t_max` (the window is not applied
-    inside the walk); with any_hit, idx is zeros."""
+    inside the walk); with any_hit, idx is zeros.  pack: the kernel's
+    packed tree and triangles (intersect_kd.packed), None to pack here."""
     from .intersect_kd import kd_select_cuda
-    idx, hit = kd_select_cuda(o, d, v0, e1, e2, eps, cull, tri_mask, tree)
+    idx, hit = kd_select_cuda(o, d, v0, e1, e2, eps, cull, tri_mask, tree,
+                              pack)
     if t_max is not None:
         gidx = idx.long()
         t, _, _ = mt_refine(o, d, v0[gidx], e1[gidx], e2[gidx], eps)

@@ -2,14 +2,18 @@
 
 The plain version is `accel/traverse.py::kd_select` (a port of the JAX
 package's jnp `kd_select`, which has no Pallas kernel).  The kernel walks
-each ray's stack in its own thread and gives the same (idx, hit): the
-closest accepted triangle, lowest id on exact t ties, idx 0 on a miss.
-It takes no window: `ops/intersect.py::make_select_fn("kdtree")` emulates
-t_max and any-hit around it, as the JAX package does.
+each ray's stack as the plain walk does and tests the leaves it reaches
+against a leaf-packed soup staged in shared memory (`pack_kd`), giving the
+same (idx, hit): the closest accepted triangle, lowest id on exact t ties,
+idx 0 on a miss.  It takes no window: `ops/intersect.py::
+make_select_fn("kdtree")` emulates t_max and any-hit around it, as the JAX
+package does, and binds the pack of its geometry once (`packed`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from typing import Optional
 
 import torch
@@ -17,30 +21,121 @@ import torch
 from .. import kernels
 from ..accel.build import KdTree
 from ..accel.traverse import check_depth, kd_select
+from ..models.scene import TensorStruct
 
 # Kernel launches made by kd_select_cuda on CUDA tensors.
 LAUNCHES = 0
-# Dynamic shared memory a block may take on Hopper (232,448 bytes), and
-# what the kernel stages per node (6 floats of box, 4 ints of links).
+# Packs built by pack_kd (the render path builds one per frame or step).
+PACKS = 0
+# Triangles per staged tile: kTile of csrc/kd_select.cu.
+KD_TILE = 128
+# (rays per block, lanes per ray) shapes the kernel is instantiated for,
+# and the one the wrapper launches, chosen on the H100 with
+# `chip_smoke.py --kd-shapes` (PERF.md); the library refuses any other
+# shape (cudaErrorInvalidValue).
+KD_SHAPES = ((4, 8), (8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 4),
+             (32, 8), (64, 8), (128, 1))
+KD_SHAPE = (16, 8)
+# Dynamic shared memory a block may take on Hopper (232,448 bytes), what
+# the kernel stages per node (6 floats of box, 4 ints of links) and its
+# two staging tiles (9 floats and an id per triangle each).
 SMEM_LIMIT = 232448
 NODE_BYTES = 40
+STAGE_BYTES = 2 * KD_TILE * 40
 
 
-def _pack_nodes(tree: KdTree):
-    """The kernel's node records: (N, 6) float32 box min and max, and
-    (N, 4) int32 child0, child1, leaf_id and a zero pad."""
+@dataclasses.dataclass
+class KdPack(TensorStruct):
+    """The kd kernel's inputs built from a tree and its triangles: node
+    records, and every leaf's triangles contiguous in leaf order, padded
+    to whole tiles of KD_TILE."""
+
+    box: torch.Tensor        # (N, 6) float32 node box min, max
+    link: torch.Tensor       # (N, 4) int32 child0, child1, leaf_id, 0
+    tri: torch.Tensor        # (tiles, 9, KD_TILE) float32 v0 e1 e2 rows
+    ids: torch.Tensor        # (tiles, KD_TILE) int32 triangle id, -1 pad
+    leaf_tile: torch.Tensor  # (L,) int32 first tile of each leaf
+    leaf_len: torch.Tensor   # (L,) int32 references of each leaf
+    num_tris: int = 0        # T of the soup the ids index
+
+
+def pack_kd(tree: KdTree, v0, e1, e2) -> KdPack:
+    """Pack `tree` and the (T, 3) triangle rows v0, e1, e2 for the kernel,
+    on the tree's device.  Leaf l's references (the ids >= 0 of its
+    leaf_tris row) fill tiles leaf_tile[l] .. in row order; the rest of its
+    last tile carries id -1 and zeros."""
+    global PACKS
+    dev = tree.leaf_tris.device
     box = torch.cat([tree.node_min, tree.node_max], dim=1).float()
     link = torch.stack([tree.child0, tree.child1, tree.leaf_id,
                         torch.zeros_like(tree.child0)], dim=1).to(torch.int32)
-    return box.contiguous(), link.contiguous()
+    rows = tree.leaf_tris.long()
+    lens = (rows >= 0).sum(dim=1)
+    tiles = (lens + KD_TILE - 1) // KD_TILE
+    first = torch.cumsum(tiles, 0) - tiles
+    n_tiles = int(tiles.sum())
+    used = rows >= 0
+    slot = first[:, None] * KD_TILE + torch.cumsum(used.long(), 1) - 1
+    ids = torch.full((n_tiles * KD_TILE,), -1, dtype=torch.long, device=dev)
+    ids[slot[used]] = rows[used]
+    soup = torch.cat([v0, e1, e2], dim=1).detach().to(device=dev,
+                                                      dtype=torch.float32)
+    tri = torch.where((ids >= 0)[:, None], soup[ids.clamp_min(0)], 0.0)
+    PACKS += 1
+    return KdPack(
+        box=box.contiguous(), link=link.contiguous(),
+        tri=tri.reshape(n_tiles, KD_TILE, 9).transpose(1, 2).contiguous(),
+        ids=ids.reshape(n_tiles, KD_TILE).to(torch.int32),
+        leaf_tile=first.to(torch.int32), leaf_len=lens.to(torch.int32),
+        num_tris=int(v0.shape[0]))
+
+
+# The last (tree, geometry, pack): the selects of one frame or train step
+# share their tree and Geometry objects, so they pack once.  Weak
+# references: the cache keeps neither alive.
+_last = (lambda: None, lambda: None, None)
+
+
+def packed(tree: KdTree, geom) -> KdPack:
+    """pack_kd of `tree` and `geom`'s triangles, built once for the pair of
+    objects and reused while both live."""
+    global _last
+    t, g, pack = _last
+    if t() is tree and g() is geom:
+        return pack
+    pack = pack_kd(tree, geom.v0, geom.e1, geom.e2)
+    _last = (weakref.ref(tree), weakref.ref(geom), pack)
+    return pack
+
+
+def kd_smem_bytes(n_nodes: int) -> int:
+    """Dynamic shared memory of one block: the node table and the two
+    staging tiles; ValueError where either does not fit."""
+    if n_nodes * NODE_BYTES > SMEM_LIMIT:
+        raise ValueError(f"kd-tree of {n_nodes} nodes does not fit the "
+                         f"kernel's shared memory ({SMEM_LIMIT} bytes)")
+    need = n_nodes * NODE_BYTES + STAGE_BYTES
+    if need > SMEM_LIMIT:
+        raise ValueError(f"the kernel's staging tiles ({STAGE_BYTES} bytes) "
+                         f"do not fit beside the node table of {n_nodes} "
+                         f"nodes ({need} > {SMEM_LIMIT} bytes)")
+    return need
 
 
 def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
-                   tri_mask: Optional[torch.Tensor], tree: KdTree):
+                   tri_mask: Optional[torch.Tensor], tree: KdTree,
+                   pack: Optional[KdPack] = None,
+                   counter: Optional[torch.Tensor] = None):
     """The kd select: the CUDA kernel for CUDA tensors, the plain version
     (accel/traverse.py::kd_select) for CPU tensors -> (idx (R,) int32,
     hit (R,) bool).  On CUDA the rays, triangles and tree must share the
-    rays' device; the tree's depth must fit the 64-slot stack."""
+    rays' device; the tree's depth must fit the 64-slot stack.
+
+    pack: pack_kd(tree, v0, e1, e2), built here when None.  counter: an
+    int64 (3,) tensor on the rays' device that the kernel adds to:
+    triangles staged, pair slots its leaf rounds run (staged live
+    triangles x the block's rays) and pair tests run.  The launch shape is
+    KD_SHAPE."""
     if not o.is_cuda:
         return kd_select(o, d, v0, e1, e2, eps, cull, tri_mask, tree)
     global LAUNCHES
@@ -57,32 +152,39 @@ def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
         if x.device != o.device:
             raise ValueError(f"tree.{name} is on {x.device}, the rays on "
                              f"{o.device}: move the tree with .to(device)")
-    leaf_tris = tree.leaf_tris
-    if leaf_tris.dtype != torch.int32 or not leaf_tris.is_contiguous():
-        raise ValueError("tree.leaf_tris: expected contiguous int32, got "
-                         f"{leaf_tris.dtype}")
     n_nodes = tree.num_nodes
-    if n_nodes * NODE_BYTES > SMEM_LIMIT:
-        raise ValueError(f"kd-tree of {n_nodes} nodes does not fit the "
-                         f"kernel's shared memory ({SMEM_LIMIT} bytes)")
+    smem = kd_smem_bytes(n_nodes)
+    if pack is None:
+        pack = pack_kd(tree, v0, e1, e2)
+    if pack.num_tris != t or pack.box.shape[0] != n_nodes or \
+            pack.tri.device != o.device:
+        raise ValueError(f"the pack ({pack.num_tris} triangles, "
+                         f"{pack.box.shape[0]} nodes, on {pack.tri.device}) "
+                         f"does not match the call ({t}, {n_nodes}, "
+                         f"{o.device})")
+    if counter is not None and (counter.dtype != torch.int64 or
+                                counter.shape != (3,) or
+                                counter.device != o.device):
+        raise ValueError("counter: expected an int64 (3,) tensor on "
+                         f"{o.device}")
     o32 = o.float().contiguous()
     d32 = d.float().contiguous()
-    tri = torch.cat([v0, e1, e2], dim=1).float().contiguous()     # (T, 9)
     mask = (torch.ones(t, dtype=torch.int32, device=o.device)
             if tri_mask is None else
             tri_mask.to(device=o.device, dtype=torch.int32).contiguous())
     if mask.shape != (t,):
         raise ValueError(f"tri_mask {tuple(mask.shape)} does not match T={t}")
-    box, link = _pack_nodes(tree)
     idx = torch.zeros(r, dtype=torch.int32, device=o.device)
     hit = torch.zeros(r, dtype=torch.bool, device=o.device)
     if r:
         rc = kernels.library().srt_kd_select(
-            o32.data_ptr(), d32.data_ptr(), tri.data_ptr(), mask.data_ptr(),
-            box.data_ptr(), link.data_ptr(), tree.leaf_tris.data_ptr(),
-            r, n_nodes, tree.leaf_cap, float(eps), int(bool(cull)),
-            idx.data_ptr(), hit.data_ptr(),
+            o32.data_ptr(), d32.data_ptr(), pack.tri.data_ptr(),
+            pack.ids.data_ptr(), mask.data_ptr(), pack.leaf_tile.data_ptr(),
+            pack.leaf_len.data_ptr(), pack.box.data_ptr(),
+            pack.link.data_ptr(), r, n_nodes, *KD_SHAPE, float(eps),
+            int(bool(cull)), idx.data_ptr(), hit.data_ptr(),
+            None if counter is None else counter.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
-        kernels.check(rc, "kd_select")
+        kernels.check(rc, f"kd_select (smem {smem} bytes)")
         LAUNCHES += 1
     return idx, hit

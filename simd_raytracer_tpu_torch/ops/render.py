@@ -268,6 +268,38 @@ def render_frame(scene: Scene, cfg: RenderConfig = RenderConfig(), *,
     for c in range(ids.shape[0]):
         chunk = ids[c]
         colors = render_chunk(scene, geom, cfg, chunk, uniforms(c), accel)
-        valid = (chunk < total).nonzero()[:, 0]
-        accum.index_add_(0, chunk[valid].long() // spp, colors[valid])
+        fold_chunk(accum, chunk, colors, spp, total)
     return (accum / spp).reshape(h, w, 3)
+
+
+def fold_chunk(accum: torch.Tensor, chunk: torch.Tensor,
+               colors: torch.Tensor, spp: int, total: int) -> None:
+    """Add one chunk's sample colors (R0, 3) into the pixel sums accum
+    (H*W, 3) in place, in an order fixed on every device.
+
+    Every chunk order (linear, tiled, and the tile schedules of
+    parallel/tiles.py) keeps a pixel's samples pixel*spp + s consecutive,
+    so each run of one pixel's valid samples is laid out in a zero-padded
+    (runs, spp) slot table, summed in sample order and added to its pixel
+    as one row.  No two rows of a chunk then meet on one pixel, so
+    index_add_ adds without racing atomics on CUDA, and a pixel split
+    between two chunks adds its two partial sums in chunk order.  Ids >=
+    total are padding."""
+    keep = (chunk < total).nonzero()[:, 0]
+    n = keep.numel()
+    if n == 0:
+        return
+    pix = chunk[keep].long() // spp
+    head = torch.ones(n, dtype=torch.bool, device=pix.device)
+    head[1:] = pix[1:] != pix[:-1]
+    starts = head.nonzero()[:, 0]
+    run = torch.cumsum(head.long(), 0) - 1
+    slots = colors.new_zeros((starts.numel(), spp, colors.shape[1]))
+    slots[run, torch.arange(n, device=pix.device) - starts[run]] = \
+        colors[keep]
+    # A loop, not slots.sum(1): torch's sum may pair the terms up, and the
+    # CPU images are held to sample order.
+    sums = slots[:, 0].clone()
+    for s in range(1, spp):
+        sums += slots[:, s]
+    accum.index_add_(0, pix[starts], sums)

@@ -19,13 +19,13 @@ import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu_torch import kernels
 from simd_raytracer_tpu_torch.accel.build import build_kdtree_for_scene
 from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
-from simd_raytracer_tpu_torch.accel.traverse import kd_select
+from simd_raytracer_tpu_torch.accel.traverse import kd_select, kd_work_pairs
 from simd_raytracer_tpu_torch.ops import grad as G
 from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_kd,
                                           intersect_sweep)
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
 from simd_raytracer_tpu_torch.ops.shade import occluded
-from torch_scenes import SeededUniforms, mixed_doc
+from torch_scenes import SeededUniforms, grid_doc, mixed_doc
 
 pytestmark = pytest.mark.cuda
 
@@ -396,3 +396,120 @@ def test_kd_wrapper_rejects_bad_input(scene, kdtree):
     with pytest.raises(ValueError, match="stack"):
         intersect_kd.kd_select_cuda(o, d, g.v0, g.e1, g.e2, EPS, True, None,
                                     kdtree.replace(depth=63))
+
+
+def camera_rays(s, shuffled, seed=15):
+    """Primary rays of every pixel of `s` in bucket-tile order (coherent
+    neighbours in each block of the kd kernel), or in a seeded random
+    order."""
+    from simd_raytracer_tpu_torch.models.camera import primary_rays
+    from simd_raytracer_tpu_torch.parallel.tiles import (SchedulingType,
+                                                         make_schedule,
+                                                         tile_ray_ids)
+    tiles = make_schedule(SchedulingType.BUCKET_TILES, s.height, s.width,
+                          bucket=16)
+    pix = torch.from_numpy(np.concatenate(
+        [tile_ray_ids(t, s.width, 1) for t in tiles])).long()
+    if shuffled:
+        pix = pix[torch.from_numpy(np.random.default_rng(seed).permutation(
+            len(pix)))]
+    pix = pix.to(DEV)
+    half = torch.full(pix.shape, 0.5, device=DEV)
+    return primary_rays(s, 90.0, pix % s.width, pix // s.width, half, half)
+
+
+@pytest.mark.parametrize("shuffled", [False, True],
+                         ids=["coherent", "shuffled"])
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kd_kernel_on_camera_rays_matches_plain(scene, kdtree, shuffled, cull,
+                                                masked):
+    """Coherent camera rays (bucket order) and the same rays shuffled: the
+    kd kernel equals the plain walk, and its counter's pair tests equal
+    the walk's pair count, the pair slots its leaf rounds ran at least
+    that."""
+    s, g, _ = scene
+    o, d = camera_rays(s, shuffled)
+    mask = g.tri_valid & ~g.tri_transmissive if masked else g.tri_valid
+    args = (o, d, g.v0, g.e1, g.e2, EPS, cull, mask, kdtree)
+    counter = torch.zeros(3, dtype=torch.int64, device=DEV)
+    got = intersect_kd.kd_select_cuda(*args, counter=counter)
+    assert_equal(got, kd_select(*args))
+    assert 0 < int(got[1].sum()) < len(o)
+    staged, slots, tested = counter.tolist()
+    assert tested == kd_work_pairs(*args)
+    assert 0 < tested <= slots and staged > 0
+
+
+@pytest.mark.parametrize("shape", intersect_kd.KD_SHAPES,
+                         ids=lambda sh: f"r{sh[0]}-g{sh[1]}")
+def test_kd_kernel_shapes_match_plain(scene, kdtree, shape, monkeypatch):
+    """Every instantiated (rays per block, lanes per ray) shape, on
+    incoherent rays whose count leaves a partial last block."""
+    s, g, _ = scene
+    o, d, _ = rays(s.cam_pos, 1001, seed=16)
+    args = (o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, kdtree)
+    monkeypatch.setattr(intersect_kd, "KD_SHAPE", shape)
+    assert_equal(intersect_kd.kd_select_cuda(*args), kd_select(*args))
+
+
+def test_kd_kernel_near_tie_grid_matches_plain():
+    """The flat grid of tests/test_torch_kdtree.py::
+    test_kd_select_near_tie_on_shared_edges on the card: rays aimed at
+    shared vertices and diagonals, max_leaf 4; the kernel equals the
+    plain walk on every ray, the outer-edge ones included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    doc, verts, tris = grid_doc()
+    s = T.parse_scene_dict(doc).to(DEV)
+    g = T.derive_geometry(s)
+    tree = build_kdtree_for_scene(s, 8, 4).to(DEV)
+    targets = np.concatenate([verts, 0.5 * (verts[tris[:, 0]]
+                                            + verts[tris[:, 2]])])
+    rng = np.random.default_rng(2)
+    o = rng.normal(scale=0.3, size=(len(targets), 3)).astype(np.float32)
+    o[:, 2] = 0.0
+    d = (targets - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o).to(DEV), torch.from_numpy(d).to(DEV)
+    for cull in (True, False):
+        args = (o, d, g.v0, g.e1, g.e2, EPS, cull, g.tri_valid, tree)
+        got = intersect_kd.kd_select_cuda(*args)
+        assert_equal(got, kd_select(*args))
+        assert int(got[1].sum()) > 150
+
+
+def test_kd_wrapper_refuses_staging_that_does_not_fit(scene, kdtree):
+    """Unreachable nodes appended until the node table fits shared memory
+    alone but not beside the two staging tiles: refused before launch."""
+    s, g, _ = scene
+    o, d, _ = rays(s.cam_pos, 64, seed=17)
+    extra = intersect_kd.SMEM_LIMIT // intersect_kd.NODE_BYTES \
+        - kdtree.num_nodes
+    z3 = torch.zeros(extra, 3, device=DEV)
+    none = torch.full((extra,), -1, dtype=torch.int32, device=DEV)
+    big = kdtree.replace(
+        node_min=torch.cat([kdtree.node_min, z3]),
+        node_max=torch.cat([kdtree.node_max, z3]),
+        child0=torch.cat([kdtree.child0, none]),
+        child1=torch.cat([kdtree.child1, none]),
+        leaf_id=torch.cat([kdtree.leaf_id, none]))
+    before = intersect_kd.LAUNCHES
+    with pytest.raises(ValueError, match="staging"):
+        intersect_kd.kd_select_cuda(o, d, g.v0, g.e1, g.e2, EPS, True, None,
+                                    big)
+    assert intersect_kd.LAUNCHES == before
+
+
+@pytest.mark.parametrize("intersector", ["sweep", "kdtree"])
+def test_cuda_renders_are_bitwise_reproducible(scene, intersector):
+    """Two CUDA renders of one frame at spp 4 (roulette, depth 3) are
+    bitwise equal: the fold-back sums a pixel's samples in a fixed
+    order."""
+    s, _, _ = scene
+    cfg = T.RenderConfig(samples_per_pixel=4, max_ray_depth=3,
+                         bounce_mode="roulette", chunk_size=1000,
+                         intersector=intersector)
+    a = T.render_frame(s, cfg, device=DEV)
+    b = T.render_frame(s, cfg, device=DEV)
+    assert torch.isfinite(a).all() and torch.equal(a, b)

@@ -30,7 +30,7 @@ from simd_raytracer_tpu_torch.native import native_build_kdtree
 from simd_raytracer_tpu_torch.ops import intersect_kd, intersect_sweep
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn, mt_select
 from torch_parity import port_scene
-from torch_scenes import mixed_doc, terrain_doc
+from torch_scenes import grid_doc, mixed_doc, terrain_doc
 
 torch.set_num_threads(2)
 
@@ -181,24 +181,7 @@ def test_kd_select_near_tie_on_shared_edges():
     (ROADMAP §C).  Against brute force: exact on the interior targets; a
     ray at the grid's outer edge meets the root box exactly on its face,
     where the slab test's rounding may leave it out, in both walks."""
-    g = 8
-    xs = np.linspace(-2.0, 2.0, g + 1, dtype=np.float32)
-    gx, gy = np.meshgrid(xs, xs, indexing="xy")
-    verts = np.stack([gx, gy, np.full_like(gx, -3.0)], -1).reshape(-1, 3)
-    ii, jj = np.meshgrid(np.arange(g), np.arange(g), indexing="ij")
-    v00 = (ii * (g + 1) + jj).ravel()
-    tris = np.concatenate([np.stack([v00, v00 + 1, v00 + g + 2], 1),
-                           np.stack([v00, v00 + g + 2, v00 + g + 1], 1)])
-    doc = {"settings": {"background_color": [0, 0, 0],
-                        "image_settings": {"width": 4, "height": 4}},
-           "camera": {"position": [0, 0, 0],
-                      "matrix": [1, 0, 0, 0, 1, 0, 0, 0, 1]},
-           "lights": [{"position": [0, 0, 1], "intensity": 1.0}],
-           "materials": [{"type": "diffuse", "albedo": [1, 1, 1],
-                          "smooth_shading": False}],
-           "objects": [{"material_index": 0,
-                        "vertices": verts.reshape(-1).tolist(),
-                        "triangles": tris.reshape(-1).tolist()}]}
+    doc, verts, tris = grid_doc()
     js = J.parse_scene_dict(doc)
     ts = port_scene(js)
     jg, tg = J.derive_geometry(js), T.derive_geometry(ts)
@@ -226,6 +209,85 @@ def test_kd_select_near_tie_on_shared_edges():
     assert torch.equal(kh[inner], bh[inner])
     assert torch.equal(ki[inner & kh], bi[inner & bh])
     assert int(kh[inner].sum()) > 150
+
+
+@pytest.mark.parametrize("build", [(8, 64), (5, 16), (8, 4)],
+                         ids=lambda b: f"d{b[0]}-l{b[1]}")
+@pytest.mark.parametrize("name", sorted(DOCS) + ["grid"])
+def test_pack_kd_layout(scenes, name, build):
+    """pack_kd against tree.leaf_tris and the geometry: every leaf's
+    packed rows hold its ids in row order with their v0/e1/e2, tiles are
+    contiguous in leaf order, the padding is id -1 and zeros, and the
+    lengths equal (leaf_tris >= 0).sum(1)."""
+    if name == "grid":
+        ts = port_scene(J.parse_scene_dict(grid_doc()[0]))
+        tg = T.derive_geometry(ts)
+    else:
+        _, _, ts, tg = scenes[name]
+    tree = build_kdtree_for_scene(ts, *build)
+    pack = intersect_kd.pack_kd(tree, tg.v0, tg.e1, tg.e2)
+    tile = intersect_kd.KD_TILE
+    rows = tree.leaf_tris.numpy()
+    lens = (rows >= 0).sum(axis=1)
+    assert np.array_equal(pack.leaf_len.numpy(), lens)
+    n_tiles = -(-lens // tile)
+    assert np.array_equal(pack.leaf_tile.numpy(),
+                          np.cumsum(n_tiles) - n_tiles)
+    assert pack.tri.shape == (n_tiles.sum(), 9, tile)
+    assert pack.ids.shape == (n_tiles.sum(), tile)
+    assert pack.tri.dtype == torch.float32 and pack.ids.dtype == torch.int32
+    assert pack.num_tris == tg.v0.shape[0]
+    ids = pack.ids.numpy().reshape(-1)
+    tri = pack.tri.numpy().transpose(0, 2, 1).reshape(-1, 9)
+    soup = torch.cat([tg.v0, tg.e1, tg.e2], dim=1).numpy()
+    for leaf in range(len(rows)):
+        a = int(pack.leaf_tile[leaf]) * tile
+        want = rows[leaf][rows[leaf] >= 0]
+        assert np.array_equal(ids[a:a + len(want)], want)
+        assert np.array_equal(tri[a:a + len(want)], soup[want])
+        pad = slice(a + len(want), a + int(n_tiles[leaf]) * tile)
+        assert (ids[pad] == -1).all() and (tri[pad] == 0).all()
+    assert (ids >= 0).sum() == lens.sum()
+    assert np.array_equal(pack.box.numpy(), np.concatenate(
+        [tree.node_min.numpy(), tree.node_max.numpy()], axis=1))
+    assert np.array_equal(pack.link.numpy()[:, :3], np.stack(
+        [tree.child0.numpy(), tree.child1.numpy(), tree.leaf_id.numpy()], 1))
+
+
+def test_kdtree_select_fn_packs_once(scenes):
+    """make_select_fn("kdtree", tree, geom) packs the tree and triangles
+    once for the pair, not per call; a kdtree render packs once."""
+    _, _, ts, tg = scenes["mixed"]
+    tree = build_kdtree_for_scene(ts)
+    o, d, tmax = (torch.from_numpy(x) for x in
+                  rays(ts.cam_pos.numpy(), n=64, seed=6))
+    before = intersect_kd.PACKS
+    sel = make_select_fn("kdtree", tree, tg)
+    for any_hit in (False, True, False):
+        sel(o, d, tg.v0, tg.e1, tg.e2, EPS, False, tg.tri_valid, tmax,
+            any_hit)
+    assert make_select_fn("kdtree", tree, tg).keywords["pack"] is \
+        sel.keywords["pack"]
+    assert intersect_kd.PACKS == before + 1
+    make_select_fn("kdtree", tree, T.derive_geometry(ts))
+    assert intersect_kd.PACKS == before + 2
+    before = intersect_kd.PACKS
+    T.render_frame(ts, T.RenderConfig(intersector="kdtree", **KD_RENDER),
+                   device="cpu")
+    assert intersect_kd.PACKS == before + 1
+
+
+def test_kd_kernel_shared_memory_is_checked():
+    """The wrapper's shared-memory check: the full scene's 299 nodes and
+    both staging tiles fit; a node table that fits alone but not beside
+    the staging tiles, and one that does not fit at all, are refused."""
+    need = intersect_kd.kd_smem_bytes(299)
+    assert need == 299 * 40 + intersect_kd.STAGE_BYTES
+    fits_alone = intersect_kd.SMEM_LIMIT // 40
+    with pytest.raises(ValueError, match="staging"):
+        intersect_kd.kd_smem_bytes(fits_alone)
+    with pytest.raises(ValueError, match="does not fit the kernel"):
+        intersect_kd.kd_smem_bytes(fits_alone + 1)
 
 
 def test_kd_select_refuses_a_deep_tree(scenes):

@@ -17,7 +17,8 @@ import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu.ops.render import make_ray_chunks as j_chunks
 from simd_raytracer_tpu_torch.__main__ import main as cli_main
 from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
-from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
+from simd_raytracer_tpu_torch.ops.render import fold_chunk, make_ray_chunks
+from simd_raytracer_tpu_torch.parallel.tiles import SchedulingType
 from simd_raytracer_tpu_torch.utils.ppm import read_ppm, save_ppm
 from torch_parity import JaxUniforms, port_scene
 from torch_scenes import mixed_doc
@@ -110,6 +111,71 @@ def test_cli_writes_the_render(tmp_path, scenes, flags, kw):
     save_ppm(img, str(tmp_path / "expect.ppm"))
     assert out.read_bytes() == (tmp_path / "expect.ppm").read_bytes()
     assert read_ppm(str(out)).shape == (12, 20, 3)
+
+
+def _fold_by_chunks(chunks, colors, hw, spp, total):
+    """NumPy model of the fold-back: within a chunk each run of one
+    pixel's samples summed in sample order, the runs added to their pixels
+    in chunk order."""
+    accum = np.zeros((hw, 3), np.float32)
+    for ids, col in zip(chunks, colors):
+        run_pix, run = None, None
+        for i, c in zip(ids, col):
+            if i >= total:
+                continue
+            p = i // spp
+            if p != run_pix:
+                if run_pix is not None:
+                    accum[run_pix] += run
+                run_pix, run = p, c.copy()
+            else:
+                run = run + c
+        if run_pix is not None:
+            accum[run_pix] += run
+    return accum
+
+
+@pytest.mark.parametrize("spp", [4, 8])
+@pytest.mark.parametrize("chunk_size", [96, 100], ids=["aligned", "split"])
+@pytest.mark.parametrize("order", ["linear", "tiled", "bucket", "region",
+                                   "single"])
+def test_fold_back_equals_numpy_reshape_sum(scenes, order, chunk_size, spp):
+    """fold_chunk over every chunk of a frame against a NumPy per-pixel
+    reshape-sum of the same sample colors, with padding ids (tiled blocks
+    past the image edge, the last chunk's tail) carrying garbage colors.
+    With chunk_size a multiple of spp the two are equal bit for bit (at
+    spp 8 too, where a pairwise sum would not be); at 100 (a multiple of
+    neither 4 nor 8) a pixel may straddle two chunks, whose
+    partial sums add in chunk order: equal to that NumPy model bit for
+    bit, and to the reshape-sum within float32 rounding."""
+    _, ts = scenes
+    h, w = 20, 37
+    scene = ts["parsed"].replace(height=h, width=w, bucket_size=16)
+    cfg = T.RenderConfig(samples_per_pixel=spp, chunk_size=chunk_size,
+                         ray_order="tiled" if order == "tiled" else "linear")
+    sched = {"bucket": SchedulingType.BUCKET_TILES,
+             "region": SchedulingType.REGION_GRID,
+             "single": SchedulingType.SINGLE}.get(order)
+    chunks = make_ray_chunks(scene, cfg, sched)
+    total = h * w * spp
+    assert (chunks >= total).any()
+    rng = np.random.default_rng(len(order) * chunk_size + spp)
+    table = rng.random((total, 3), dtype=np.float32)
+    colors = np.where((chunks < total)[..., None],
+                      table[np.minimum(chunks, total - 1)],
+                      rng.random(chunks.shape + (3,), dtype=np.float32))
+    accum = torch.zeros((h * w, 3))
+    for ids, col in zip(chunks, colors):
+        fold_chunk(accum, torch.from_numpy(ids), torch.from_numpy(col), spp,
+                   total)
+    got = accum.numpy()
+    ref = table.reshape(h * w, spp, 3).sum(axis=1)
+    assert np.array_equal(got, _fold_by_chunks(chunks, colors, h * w, spp,
+                                               total))
+    if chunk_size % spp == 0:
+        assert np.array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
 
 
 def test_import_pulls_in_no_jax():

@@ -205,6 +205,29 @@ class SeededUniforms:
         return rng.random((n, count, 2), dtype=np.float32)
 
 
+def grid_doc(g: int = 8):
+    """A flat g x g grid of triangle pairs at z = -3 that share edges and
+    vertices -> (doc, vertices, triangles)."""
+    xs = np.linspace(-2.0, 2.0, g + 1, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs, indexing="xy")
+    verts = np.stack([gx, gy, np.full_like(gx, -3.0)], -1).reshape(-1, 3)
+    ii, jj = np.meshgrid(np.arange(g), np.arange(g), indexing="ij")
+    v00 = (ii * (g + 1) + jj).ravel()
+    tris = np.concatenate([np.stack([v00, v00 + 1, v00 + g + 2], 1),
+                           np.stack([v00, v00 + g + 2, v00 + g + 1], 1)])
+    doc = {"settings": {"background_color": [0, 0, 0],
+                        "image_settings": {"width": 4, "height": 4}},
+           "camera": {"position": [0, 0, 0],
+                      "matrix": [1, 0, 0, 0, 1, 0, 0, 0, 1]},
+           "lights": [{"position": [0, 0, 1], "intensity": 1.0}],
+           "materials": [{"type": "diffuse", "albedo": [1, 1, 1],
+                          "smooth_shading": False}],
+           "objects": [{"material_index": 0,
+                        "vertices": verts.reshape(-1).tolist(),
+                        "triangles": tris.reshape(-1).tolist()}]}
+    return doc, verts, tris
+
+
 def bitmap_scene_kwargs(h: int = 256, w: int = 256, seed: int = 0) -> dict:
     """`build_scene` kwargs covering all four texture tags, the bitmap one
     given as a seeded (8, 8, 3) array so no image file or PIL is needed."""
