@@ -63,19 +63,28 @@ Phases, one result line each:
      same calls, with the kernel's counter (triangles staged, pair slots
      run over pairs needed; its pair tests must equal the walk's); with
      --kd-shapes, every instantiated shape of the kd kernel on those
-     calls; the kd kernel and a kdleaf sweep against K1 on 8,192 random
-     rays;
+     calls; the depth-14 tree of the full scene (5,735 nodes, more than a
+     block's shared memory could hold) on the primary chunk and its own
+     480x480 frame's largest
+     shadow call, exact and timed; the kd kernel and a kdleaf sweep
+     against K1 on 8,192 random rays;
  15. the reference binary's path at full width: parse, native kd build,
      a 960x960 spp 1 depth 5 split frame through the kd kernel in bucket
      tiles (two frames, bitwise equal), save_ppm; held against the
      brute-force frame (max |d| 1e-4, PPM channels off by at most 1 on at
-     most 0.1%), timed and profiled;
+     most 0.1%), timed and profiled; a 480x480 frame on the depth-14 tree
+     held against the brute-force frame the same way;
  16. render_progressive of the headline config at 8 spp in batches of 4,
      stopped after one batch and resumed from its checkpoint (bitwise
      equal to the whole render); a 4-frame orbit at 480x480; the
      wavefront occupancy of one headline chunk; the CLI with
-     --intersector kdtree --scheduling bucket --profile.
-Phases 5, 8-12, 15 and 16 each count the kernel launches of their own
+     --intersector kdtree --scheduling bucket --profile;
+ 17. parallel/sharding.py over an NCCL world of one: the headline frame
+     sharded (bitwise equal to render_frame with the same per-chunk
+     sources, timed beside phase 5's), one sharded SGD step of phase 10's
+     65,536 rays (bitwise equal to train_step), the port's dry run
+     (graft_entry.dryrun_multichip(1)).
+Phases 5, 8-12 and 15-17 each count the kernel launches of their own
 paths from zero and fail if a kernel of the path never launched; the
 kernel line reports their sum, with phase 6's and 14's times and bounds of
 the sweep's full-reach secondary call and K1's and the kd kernel's primary
@@ -770,9 +779,7 @@ def torch_source(seed):
     """A uniform source drawing on the card from a generator seeded with
     `seed`: the same seed gives the same estimator."""
     from simd_raytracer_tpu_torch.ops.render import TorchUniforms
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(seed)
-    return TorchUniforms(gen, DEV, torch.float32)
+    return TorchUniforms.seeded(seed, DEV, torch.float32)
 
 
 def gi_cfg():
@@ -986,8 +993,9 @@ def kd_call(label, a, tree, pack):
     if tested != pairs:
         raise AssertionError(f"{label}: the kernel ran {tested} pair tests, "
                              f"the walk needs {pairs}")
-    ms, plain_ms, runs = time_call(lambda: KDM.kd_select_cuda(*args, pack),
-                                   lambda: kd_select(*args), 10)
+    ms, plain_ms, runs = time_call(
+        lambda: KDM.kd_select_cuda(*args, pack),
+        lambda: kd_select(*args), 10)
     r, t = a["o"].shape[0], a["v0"].shape[0]
     # o, d in and idx, hit out: 29 bytes a ray; the mask: 4 bytes a
     # triangle; the pack: node records, 40 bytes and an id per packed
@@ -1002,7 +1010,8 @@ def kd_call(label, a, tree, pack):
                 share_of_bound=b_ms / ms, triangles_staged=staged,
                 pair_slots_run=slots, pairs_run_over_needed=slots / pairs,
                 rays_per_block=KDM.KD_SHAPE[0],
-                lanes_per_ray=KDM.KD_SHAPE[1], exact=True)
+                lanes_per_ray=KDM.KD_SHAPE[1], nodes=tree.num_nodes,
+                exact=True)
 
 
 def kd_shapes(calls, tree, pack):
@@ -1109,6 +1118,20 @@ def phase_kd(scene):
     more = {}
     if "--kd-shapes" in sys.argv[1:]:
         more["shape_ms"] = kd_shapes(inputs, tree, pack)
+    # The depth-14 tree of the same scene (5,735 nodes, 229 KB of node
+    # records): the primary chunk and its own 480x480 frame's largest
+    # shadow call.
+    deep = build_kdtree_for_scene(host, max_depth=14).to(DEV)
+    print(f"depth-14 kd-tree: {deep.num_nodes} nodes", flush=True)
+    deep_shadow = capture(lambda: T.render_frame(
+        frame, kd_config(), device=DEV, accel=deep,
+        scheduling=SchedulingType.BUCKET_TILES), I, "_kd_window_select",
+        kind_of)["shadow"]
+    deep_pack = pack_kd(deep, geom.v0, geom.e1, geom.e2)
+    for what, a in (("kd primary chunk (kd frame), depth-14 tree", primary),
+                    ("kd shadow (480x480 kd frame), depth-14 tree",
+                     deep_shadow)):
+        calls[what] = kd_call(what, a, deep, deep_pack)
 
     o, d, tmax = random_rays(scene, 8192, seed=14)
     sweep = build_sweep_for_scene(host, partition="kdleaf").to(DEV)
@@ -1144,20 +1167,43 @@ def phase_kd(scene):
            pack_bytes=nbytes(pack.box, pack.link, pack.tri, pack.ids,
                              pack.leaf_tile, pack.leaf_len),
            pack_ms=pack_ms, calls=calls, random_rays=len(o),
-           hits_vs_k1=vs_k1, kdleaf_slices=sweep.num_slices, exact=True,
-           **more)
+           hits_vs_k1=vs_k1, kdleaf_slices=sweep.num_slices,
+           deep_tree=dict(nodes=deep.num_nodes, depth=deep.depth,
+                          leaves=int((deep.leaf_id >= 0).sum()),
+                          packed_tiles=deep_pack.ids.shape[0]),
+           exact=True, **more)
     return calls
+
+
+def vs_brute_force(what, got, ref):
+    """Hold a kd frame against the brute-force frame: max |d| 1e-4, PPM
+    channels off by at most 1 on at most 0.1% -> the differences."""
+    from simd_raytracer_tpu_torch.utils.ppm import image_to_u8
+    got, ref = got.cpu(), ref.cpu()
+    err = float((got - ref).abs().max())
+    ua, ub = image_to_u8(ref).astype(int), image_to_u8(got).astype(int)
+    off = int((ua != ub).sum())
+    out = dict(max_abs_err=err,
+               pixels_differing=int((got != ref).any(dim=-1).sum()),
+               ppm_channels_differing=off,
+               ppm_max_channel_diff=int(np.abs(ua - ub).max()))
+    if not (bool(torch.isfinite(got).all()) and err <= 1e-4
+            and out["ppm_max_channel_diff"] <= 1 and off <= 0.001 * ua.size):
+        raise AssertionError(f"{what} differs from the brute-force frame: "
+                             f"{out}")
+    return out
 
 
 def phase_refbin(tmp):
     """The reference binary's path at full width: parse the file, build
     the kd-tree, render in bucket tiles through the kd kernel, save the
     PPM; held against the brute-force frame (K1, linear order) and
-    profiled as phase 7."""
+    profiled as phase 7.  Then a 480x480 frame on the depth-14 tree (5,735
+    nodes), held against brute force too."""
     import simd_raytracer_tpu_torch as T
     from simd_raytracer_tpu_torch.accel.build import build_kdtree_for_scene
     from simd_raytracer_tpu_torch.parallel.tiles import SchedulingType
-    from simd_raytracer_tpu_torch.utils.ppm import image_to_u8, read_ppm
+    from simd_raytracer_tpu_torch.utils.ppm import read_ppm
     from simd_raytracer_tpu_torch.utils.profiling import PhaseTimer
     from torch_scenes import mixed_doc
     path = os.path.join(tmp, "refbin.crtscene")
@@ -1194,29 +1240,13 @@ def phase_refbin(tmp):
     if read_ppm(out).shape != (REFBIN, REFBIN, 3):
         raise AssertionError("kd frame PPM has the wrong shape")
 
-    ref = T.render_frame(scene, T.RenderConfig(max_ray_depth=5),
-                         device=DEV).cpu()
-    got = img.cpu()
-    err = float((got - ref).abs().max())
-    ua, ub = image_to_u8(ref).astype(int), image_to_u8(got).astype(int)
-    off = int((ua != ub).sum())
-    pixels = int((got != ref).any(dim=-1).sum())
     fields = dict(width=REFBIN, height=REFBIN, spp=1, depth=5,
                   bucket=scene.bucket_size, warm_s=times[0], frame_s=times[1],
                   bitwise_equal_frames=2,
                   primary_rays_per_s=REFBIN * REFBIN / times[1],
-                  phases_s=dict(timer.seconds), launches=launches,
-                  vs_brute_force=dict(max_abs_err=err,
-                                      pixels_differing=pixels,
-                                      ppm_channels_differing=off,
-                                      ppm_max_channel_diff=int(
-                                          np.abs(ua - ub).max())))
-    if not (bool(torch.isfinite(got).all()) and err <= 1e-4
-            and int(np.abs(ua - ub).max()) <= 1 and off <= 0.001 * ua.size):
-        report("15 kd frame (failed)", **fields)
-        raise AssertionError(f"kd frame differs from the brute-force frame: "
-                             f"max |d| {err}, {pixels} pixels, {off} PPM "
-                             f"channels")
+                  phases_s=dict(timer.seconds), launches=dict(launches))
+    ref = T.render_frame(scene, T.RenderConfig(max_ray_depth=5), device=DEV)
+    fields["vs_brute_force"] = vs_brute_force("kd frame", img, ref)
     wall, busy, n_events, top, by_name = device_profile(run)
     kd_s = sum(t for k, t in by_name.items() if "kd_select" in k)
     fields.update(profiled_wall_s=wall, device_busy_s=busy,
@@ -1225,6 +1255,27 @@ def phase_refbin(tmp):
                   busy_share_of_unprofiled_frame=busy / times[1],
                   kd_kernel_s=kd_s, kd_share_of_busy=kd_s / busy,
                   top_device=top)
+
+    small = scene.replace(height=FRAME, width=FRAME)
+    deep = build_kdtree_for_scene(scene, max_depth=14)
+    counts_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deep_img = T.render_frame(small, cfg, device=DEV, accel=deep,
+                              scheduling=sched)
+    torch.cuda.synchronize()
+    deep_s = time.perf_counter() - t0
+    deep_launches = counts()
+    need_launches("depth-14 kd frame", deep_launches, KD)
+    for k in launches:
+        launches[k] += deep_launches[k]
+    fields["depth14_frame"] = dict(
+        width=FRAME, height=FRAME, nodes=deep.num_nodes, depth=deep.depth,
+        frame_s=deep_s, launches=deep_launches,
+        vs_brute_force=vs_brute_force(
+            "depth-14 kd frame", deep_img,
+            T.render_frame(small, T.RenderConfig(max_ray_depth=5),
+                           device=DEV)))
     report("15 kd frame (reference binary path)", **fields)
     return launches
 
@@ -1338,6 +1389,96 @@ def phase_progressive(tmp, full, accel):
     return launches
 
 
+def phase_sharded(full, accel, headline_s):
+    """parallel/sharding.py over an NCCL world of one (NCCL takes one rank
+    per card): the headline frame sharded, bitwise equal to render_frame
+    with the same per-chunk sources; one sharded SGD step on phase 10's
+    65,536 ray ids, bitwise equal to train_step with the same source (an
+    all-reduce over one rank is the identity); the port's dry run in the
+    same group."""
+    import torch.distributed as dist
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.graft_entry import (dryrun_multichip,
+                                                      free_port)
+    from simd_raytracer_tpu_torch.ops import grad as G
+    from simd_raytracer_tpu_torch.parallel import sharding as S
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(free_port())
+    S.init_distributed(DEV, world_size=1, rank=0)
+    try:
+        mesh = S.make_mesh(device=DEV)
+        cfg = T.RenderConfig(samples_per_pixel=4, max_ray_depth=5,
+                             bounce_mode="roulette", intersector="sweep")
+        # Sharded and single-process frames in turns, each timed; only the
+        # sharded frames' launches are counted.
+        sources = S.chunk_uniforms(cfg, DEV, torch.float32)
+        launches = dict.fromkeys(KERNELS, 0)
+        times, ref_times = [], []
+        for _ in range(2):
+            counts_reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = S.render_frame_sharded(full, cfg, mesh, accel=accel)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            for k, v in counts().items():
+                launches[k] += v
+            t0 = time.perf_counter()
+            ref = T.render_frame(full, cfg, device=DEV, accel=accel,
+                                 uniforms=sources)
+            torch.cuda.synchronize()
+            ref_times.append(time.perf_counter() - t0)
+            if not (img.shape == ref.shape and torch.equal(img, ref)):
+                raise AssertionError(
+                    f"sharded frame differs from render_frame: max |d| "
+                    f"{float((img - ref).abs().max())}")
+
+        tcfg = T.RenderConfig(samples_per_pixel=4, max_ray_depth=5,
+                              chunk_size=TRAIN_RAYS, bounce_mode="roulette",
+                              intersector="sweep")
+        ids = interior_ids(full, tcfg, TRAIN_RAYS)
+        target = torch.zeros((len(ids), 3), device=DEV)
+        params, skeleton = G.split_params(full)
+        counts_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, loss = S.train_step_sharded(
+            params, skeleton, tcfg, mesh, ids[None], target[None],
+            torch.tensor([[7]]), accel=accel)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        for k, v in counts().items():
+            launches[k] += v
+        ref_new, ref_loss = G.train_step(params, skeleton, tcfg, ids, target,
+                                         torch_source(7), accel=accel)
+        moved = [k for k in new if not torch.equal(new[k], ref_new[k])]
+        if not (torch.isfinite(loss) and torch.equal(loss, ref_loss)
+                and not moved):
+            raise AssertionError(f"sharded step differs from train_step: "
+                                 f"loss {float(loss)} vs {float(ref_loss)}, "
+                                 f"params {moved}")
+
+        counts_reset()
+        t0 = time.perf_counter()
+        dryrun_multichip(1, device=DEV)
+        dryrun_s = time.perf_counter() - t0
+        for k, v in counts().items():
+            launches[k] += v
+        need_launches("sharded paths", launches, SWEEP, K1)
+        report("17 sharded (NCCL world of one)", world_size=mesh.size,
+               backend=dist.get_backend(), width=full.width,
+               height=full.height, spp=4, depth=5, frame_s=times,
+               render_frame_same_sources_s=ref_times,
+               headline_frame_s_phase5=headline_s,
+               bitwise_equal_to_render_frame=True, step_rays=len(ids),
+               step_s=step_s, step_loss=float(loss),
+               bitwise_equal_to_train_step=True, dryrun_s=dryrun_s,
+               launches=launches)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1368,7 +1509,7 @@ def main() -> int:
                 cfg.intersector == "sweep")
         for label, (scene, cfg, accel, frame_s) in frames.items()})
 
-    full, _, accel, _ = frames["headline"]
+    full, _, accel, headline_s = frames["headline"]
     runs = {}
     paths = {"5 headline+default+bitmap frames": dict(launches)}
     paths["8 GI frame"], runs["GI frame"] = phase_gi(small, full, accel)
@@ -1384,6 +1525,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths["15 kd frame"] = phase_refbin(tmp)
         paths["16 progressive+orbit"] = phase_progressive(tmp, full, accel)
+    paths["17 sharded"] = phase_sharded(full, accel, headline_s)
     for name, more in paths.items():
         if name[0] != "5":
             for k in launches:

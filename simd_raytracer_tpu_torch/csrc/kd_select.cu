@@ -40,6 +40,12 @@
 //    optional counter measures it: pair slots run over pair tests needed);
 //  * packing per call: the pack is bound once per frame and geometry.
 //
+// Node records (40 bytes a node) are read from device memory through the
+// read-only cache, so the kernel walks a tree of any size the stack allows
+// and its shared memory is the two staging tiles alone.  (A shared-memory
+// copy of a table that fits timed the same on the H100, within run-to-run
+// spread: PERF.md §6.)
+//
 // Exactness: winners must equal the plain version
 // (simd_raytracer_tpu_torch/accel/traverse.py::kd_select) bit for bit.
 // Each ray walks inner nodes exactly as the plain walk does (the same slab
@@ -109,7 +115,7 @@ kd_select_kernel(const float* __restrict__ o, const float* __restrict__ d,
                  const int* __restrict__ leaf_len,     // (L,) references
                  const float* __restrict__ node_box,   // (N, 6) min, max
                  const int* __restrict__ node_link,    // (N, 4) c0 c1 leaf -
-                 int n_rays, int n_nodes, float eps, int cull,
+                 int n_rays, float eps, int cull,
                  int* __restrict__ out_idx,
                  unsigned char* __restrict__ out_hit,
                  unsigned long long* __restrict__ counter) {
@@ -120,17 +126,11 @@ kd_select_kernel(const float* __restrict__ o, const float* __restrict__ d,
                 "whole warps; a ray's lanes lie in one warp");
   extern __shared__ float4 smem4[];
   Stage* stage = reinterpret_cast<Stage*>(smem4);
-  float* s_box = reinterpret_cast<float*>(stage + 2);
-  int* s_link = reinterpret_cast<int*>(s_box + 6 * n_nodes);
   // The leaf of the round, alternating between two slots so that
   // resetting the next round's slot cannot meet a late read of this one.
   __shared__ int s_leaf[2];
   __shared__ int s_live;  // live triangles staged this round (counter)
 
-  for (int k = threadIdx.x; k < 6 * n_nodes; k += kThreads)
-    s_box[k] = node_box[k];
-  for (int k = threadIdx.x; k < 4 * n_nodes; k += kThreads)
-    s_link[k] = node_link[k];
   if (threadIdx.x == 0) {
     s_leaf[0] = INT_MAX;
     s_live = 0;
@@ -159,23 +159,28 @@ kd_select_kernel(const float* __restrict__ o, const float* __restrict__ d,
     // Walk until a leaf that passes the test, or the stack is empty.
     while (pending < 0 && sp > 0) {
       const int node = stack[--sp];
-      const float* box = s_box + 6 * node;
+      const float* box = node_box + 6 * node;
+      const float bx1 = __ldg(box + 3);
+      const float by1 = __ldg(box + 4);
+      const float bz1 = __ldg(box + 5);
       float lx, hx, ly, hy, lz, hz;
-      slab_axis(ray.ox, inv_x, box[0], box[3], lx, hx);
-      slab_axis(ray.oy, inv_y, box[1], box[4], ly, hy);
-      slab_axis(ray.oz, inv_z, box[2], box[5], lz, hz);
+      slab_axis(ray.ox, inv_x, __ldg(box), bx1, lx, hx);
+      slab_axis(ray.oy, inv_y, __ldg(box + 1), by1, ly, hy);
+      slab_axis(ray.oz, inv_z, __ldg(box + 2), bz1, lz, hz);
       const float t_near = fmaxf(fmaxf(fmaxf(lx, ly), lz), 0.f);
       const float t_far = fminf(fminf(hx, hy), hz);
       if (!(t_far >= t_near && t_near <= best_t)) continue;
-      const int c0 = s_link[4 * node];
+      const int* link = node_link + 4 * node;
+      const int c0 = __ldg(link);
       if (c0 < 0) {
-        pending = s_link[4 * node + 2];
+        pending = __ldg(link + 2);
         break;
       }
-      const int c1 = s_link[4 * node + 1];
-      const float* cbox = s_box + 6 * c0;
-      const int axis = cbox[3] != box[3] ? 0 : cbox[4] != box[4] ? 1
-                     : cbox[5] != box[5] ? 2 : 0;
+      const int c1 = __ldg(link + 1);
+      const float* cbox = node_box + 6 * c0;
+      const int axis = __ldg(cbox + 3) != bx1 ? 0
+                     : __ldg(cbox + 4) != by1 ? 1
+                     : __ldg(cbox + 5) != bz1 ? 2 : 0;
       const float d_axis = axis == 0 ? ray.dx : axis == 1 ? ray.dy : ray.dz;
       const bool near_first = d_axis >= 0.f;  // child0 holds the lower half
       stack[sp++] = near_first ? c1 : c0;
@@ -300,37 +305,31 @@ template <int R, int G>
 int launch(const float* o, const float* d, const float* tri, const int* ids,
            const int* mask, const int* leaf_tile, const int* leaf_len,
            const float* node_box, const int* node_link, int n_rays,
-           int n_nodes, float eps, int cull, int* idx, unsigned char* hit,
+           float eps, int cull, int* idx, unsigned char* hit,
            unsigned long long* counter, cudaStream_t stream) {
-  const int smem = 2 * static_cast<int>(sizeof(Stage)) +
-                   n_nodes * 10 * static_cast<int>(sizeof(float));
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kd_select_kernel<R, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   const int grid = (n_rays + R - 1) / R;
-  kd_select_kernel<R, G><<<grid, R * G, smem, stream>>>(
+  kd_select_kernel<R, G><<<grid, R * G, 2 * sizeof(Stage), stream>>>(
       o, d, tri, ids, mask, leaf_tile, leaf_len, node_box, node_link, n_rays,
-      n_nodes, eps, cull, idx, hit, counter);
+      eps, cull, idx, hit, counter);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches ceil(n_rays / rays_per_block) blocks of rays_per_block * lanes
-// threads on `stream`, each staging the n_nodes node records (40 bytes
-// each) and two triangle tiles (5,120 bytes each) in dynamic shared
-// memory; `counter` (three int64: triangles staged, pair slots run, pair
+// threads on `stream`, each staging two triangle tiles (5,120 bytes each)
+// in dynamic shared memory and reading the node records from device
+// memory.  `counter` (three int64: triangles staged, pair slots run, pair
 // tests run) may be null.  (rays_per_block, lanes) is one of the
 // instantiated shapes below (ops/intersect_kd.py::KD_SHAPES); returns the
-// cudaError_t of the attribute call or the launch (0 = ok).
+// cudaError_t of the launch (0 = ok).
 extern "C" int srt_kd_select(const void* o, const void* d, const void* tri,
                              const void* ids, const void* mask,
                              const void* leaf_tile, const void* leaf_len,
                              const void* node_box, const void* node_link,
-                             int n_rays, int n_nodes, int rays_per_block,
-                             int lanes, float eps, int cull, void* idx,
-                             void* hit, void* counter, void* stream) {
+                             int n_rays, int rays_per_block, int lanes,
+                             float eps, int cull, void* idx, void* hit,
+                             void* counter, void* stream) {
 #define SRT_KD_SHAPE(R, G)                                                   \
   if (rays_per_block == R && lanes == G)                                     \
     return launch<R, G>(                                                     \
@@ -339,7 +338,7 @@ extern "C" int srt_kd_select(const void* o, const void* d, const void* tri,
         static_cast<const int*>(mask), static_cast<const int*>(leaf_tile),   \
         static_cast<const int*>(leaf_len),                                   \
         static_cast<const float*>(node_box),                                 \
-        static_cast<const int*>(node_link), n_rays, n_nodes, eps, cull,      \
+        static_cast<const int*>(node_link), n_rays, eps, cull,               \
         static_cast<int*>(idx), static_cast<unsigned char*>(hit),            \
         static_cast<unsigned long long*>(counter),                           \
         static_cast<cudaStream_t>(stream));

@@ -120,9 +120,8 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.srt_sweep_select.argtypes = [p] * 8 + [i] * 3 + [f, i, i] + [p, p]
     lib.srt_sweep_select.restype = i
     # o, d, tri, ids, mask, leaf_tile, leaf_len, node_box, node_link |
-    # n_rays, n_nodes, rays_per_block, lanes | eps, cull | idx, hit,
-    # counter, stream
-    lib.srt_kd_select.argtypes = [p] * 9 + [i] * 4 + [f, i] + [p] * 4
+    # n_rays, rays_per_block, lanes | eps, cull | idx, hit, counter, stream
+    lib.srt_kd_select.argtypes = [p] * 9 + [i] * 3 + [f, i] + [p] * 4
     lib.srt_kd_select.restype = i
     return lib
 

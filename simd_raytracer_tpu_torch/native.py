@@ -148,6 +148,11 @@ def _load() -> Optional[ctypes.CDLL]:
     return _lib
 
 
+def native_available() -> bool:
+    """True where the library loads (built into _build/ at first call)."""
+    return _load() is not None
+
+
 def _fp(a: np.ndarray):
     return a.ctypes.data_as(_F32P)
 

@@ -74,13 +74,15 @@ def pixel_loss(params: Dict[str, torch.Tensor], skeleton: Scene,
 def loss_and_grad(params, skeleton: Scene, cfg: RenderConfig, ids, target,
                   uniforms, accel=None):
     """(loss, {name: d loss / d param}) through torch.autograd.grad; a
-    param the loss does not reach gets a zero gradient, as in JAX."""
+    param the loss does not reach gets a zero gradient, as in JAX (every
+    one where the ids are all padding)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         loss = pixel_loss(leaves, skeleton, cfg, ids, target, uniforms,
                           accel)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        grads = (torch.autograd.grad(loss, list(leaves.values()),
+                                     allow_unused=True)
+                 if loss.requires_grad else [None] * len(leaves))
     return loss.detach(), {
         k: torch.zeros_like(v) if g is None else g
         for (k, v), g in zip(leaves.items(), grads)}

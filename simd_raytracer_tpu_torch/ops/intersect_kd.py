@@ -5,9 +5,11 @@ package's jnp `kd_select`, which has no Pallas kernel).  The kernel walks
 each ray's stack as the plain walk does and tests the leaves it reaches
 against a leaf-packed soup staged in shared memory (`pack_kd`), giving the
 same (idx, hit): the closest accepted triangle, lowest id on exact t ties,
-idx 0 on a miss.  It takes no window: `ops/intersect.py::
-make_select_fn("kdtree")` emulates t_max and any-hit around it, as the JAX
-package does, and binds the pack of its geometry once (`packed`).
+idx 0 on a miss.  It reads the node records from device memory, so it
+walks a tree of any size the stack allows.  It takes no window:
+`ops/intersect.py::make_select_fn("kdtree")` emulates t_max and any-hit
+around it, as the JAX package does, and binds the pack of its geometry
+once (`packed`).
 """
 
 from __future__ import annotations
@@ -36,12 +38,6 @@ KD_TILE = 128
 KD_SHAPES = ((4, 8), (8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 4),
              (32, 8), (64, 8), (128, 1))
 KD_SHAPE = (16, 8)
-# Dynamic shared memory a block may take on Hopper (232,448 bytes), what
-# the kernel stages per node (6 floats of box, 4 ints of links) and its
-# two staging tiles (9 floats and an id per triangle each).
-SMEM_LIMIT = 232448
-NODE_BYTES = 40
-STAGE_BYTES = 2 * KD_TILE * 40
 
 
 @dataclasses.dataclass
@@ -108,20 +104,6 @@ def packed(tree: KdTree, geom) -> KdPack:
     return pack
 
 
-def kd_smem_bytes(n_nodes: int) -> int:
-    """Dynamic shared memory of one block: the node table and the two
-    staging tiles; ValueError where either does not fit."""
-    if n_nodes * NODE_BYTES > SMEM_LIMIT:
-        raise ValueError(f"kd-tree of {n_nodes} nodes does not fit the "
-                         f"kernel's shared memory ({SMEM_LIMIT} bytes)")
-    need = n_nodes * NODE_BYTES + STAGE_BYTES
-    if need > SMEM_LIMIT:
-        raise ValueError(f"the kernel's staging tiles ({STAGE_BYTES} bytes) "
-                         f"do not fit beside the node table of {n_nodes} "
-                         f"nodes ({need} > {SMEM_LIMIT} bytes)")
-    return need
-
-
 def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
                    tri_mask: Optional[torch.Tensor], tree: KdTree,
                    pack: Optional[KdPack] = None,
@@ -153,7 +135,6 @@ def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
             raise ValueError(f"tree.{name} is on {x.device}, the rays on "
                              f"{o.device}: move the tree with .to(device)")
     n_nodes = tree.num_nodes
-    smem = kd_smem_bytes(n_nodes)
     if pack is None:
         pack = pack_kd(tree, v0, e1, e2)
     if pack.num_tris != t or pack.box.shape[0] != n_nodes or \
@@ -181,10 +162,10 @@ def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
             o32.data_ptr(), d32.data_ptr(), pack.tri.data_ptr(),
             pack.ids.data_ptr(), mask.data_ptr(), pack.leaf_tile.data_ptr(),
             pack.leaf_len.data_ptr(), pack.box.data_ptr(),
-            pack.link.data_ptr(), r, n_nodes, *KD_SHAPE, float(eps),
-            int(bool(cull)), idx.data_ptr(), hit.data_ptr(),
+            pack.link.data_ptr(), r, *KD_SHAPE, float(eps), int(bool(cull)),
+            idx.data_ptr(), hit.data_ptr(),
             None if counter is None else counter.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
-        kernels.check(rc, f"kd_select (smem {smem} bytes)")
+        kernels.check(rc, "kd_select")
         LAUNCHES += 1
     return idx, hit

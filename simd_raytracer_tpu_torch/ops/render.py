@@ -43,6 +43,14 @@ class TorchUniforms:
         self.device = device
         self.dtype = dtype
 
+    @classmethod
+    def seeded(cls, seed: int, device, dtype) -> "TorchUniforms":
+        """A source drawing from a new generator on `device` seeded with
+        `seed`: the same seed gives the same draws."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return cls(gen, device, dtype)
+
     def jitter(self, n: int) -> torch.Tensor:
         """(n, 2) subpixel offsets for spp > 1."""
         return torch.rand((n, 2), generator=self.generator,
@@ -246,6 +254,23 @@ def render_frame(scene: Scene, cfg: RenderConfig = RenderConfig(), *,
     with cfg.rng_seed, serves every chunk in order.  scheduling: a
     parallel.tiles.SchedulingType to walk the image in the reference's
     tile order (see make_ray_chunks)."""
+    scene, accel, geom, ids = frame_setup(scene, cfg, device, accel,
+                                          scheduling)
+    if uniforms is None:
+        source = TorchUniforms.seeded(
+            cfg.rng_seed if cfg.rng_seed is not None else 0, ids.device,
+            scene.vertices.dtype)
+        uniforms = lambda chunk: source   # noqa: E731
+    return fold_frame(scene, cfg, ids, lambda c: render_chunk(
+        scene, geom, cfg, ids[c], uniforms(c), accel))
+
+
+def frame_setup(scene: Scene, cfg: RenderConfig, device, accel=None,
+                scheduling=None):
+    """A frame's inputs on `device` -> (scene, accel, geometry, ray-id
+    chunks (C, R0) as make_ray_chunks deals them): the accelerator is built
+    from the scene when None (build_accel).  Raises for a configuration
+    check_supported refuses."""
     check_supported(cfg)
     dev = resolve_device(device)
     scene = scene.to(dev)
@@ -253,22 +278,21 @@ def render_frame(scene: Scene, cfg: RenderConfig = RenderConfig(), *,
         accel = build_accel(scene, cfg)
     if accel is not None:
         accel = accel.to(dev)
-    geom = derive_geometry(scene)
-    dtype = scene.vertices.dtype
-    if uniforms is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(cfg.rng_seed if cfg.rng_seed is not None else 0)
-        source = TorchUniforms(gen, dev, dtype)
-        uniforms = lambda chunk: source   # noqa: E731
+    ids = torch.from_numpy(make_ray_chunks(scene, cfg, scheduling)).to(dev)
+    return scene, accel, derive_geometry(scene), ids
 
+
+def fold_frame(scene: Scene, cfg: RenderConfig, ids: torch.Tensor,
+               colors_of: Callable[[int], torch.Tensor]) -> torch.Tensor:
+    """The (H, W, 3) image of the chunks `ids`: colors_of(c), chunk c's
+    (R0, 3) sample colors, folded into the pixel sums by fold_chunk in
+    chunk order, then divided by spp."""
     h, w, spp = scene.height, scene.width, cfg.samples_per_pixel
     total = h * w * spp
-    ids = torch.from_numpy(make_ray_chunks(scene, cfg, scheduling)).to(dev)
-    accum = torch.zeros((h * w, 3), dtype=dtype, device=dev)
+    accum = torch.zeros((h * w, 3), dtype=scene.vertices.dtype,
+                        device=ids.device)
     for c in range(ids.shape[0]):
-        chunk = ids[c]
-        colors = render_chunk(scene, geom, cfg, chunk, uniforms(c), accel)
-        fold_chunk(accum, chunk, colors, spp, total)
+        fold_chunk(accum, ids[c], colors_of(c), spp, total)
     return (accum / spp).reshape(h, w, 3)
 
 

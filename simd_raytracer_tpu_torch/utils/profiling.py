@@ -81,9 +81,9 @@ def wavefront_occupancy(scene, cfg, ray_ids, uniforms=None, accel=None, *,
     if accel is not None:
         accel = accel.to(dev)
     if uniforms is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(cfg.rng_seed if cfg.rng_seed is not None else 0)
-        uniforms = TorchUniforms(gen, dev, scene.vertices.dtype)
+        uniforms = TorchUniforms.seeded(
+            cfg.rng_seed if cfg.rng_seed is not None else 0, dev,
+            scene.vertices.dtype)
     counts: list = []
     render_chunk(scene, derive_geometry(scene), cfg,
                  torch.as_tensor(ray_ids, device=dev), uniforms, accel,
@@ -92,7 +92,8 @@ def wavefront_occupancy(scene, cfg, ray_ids, uniforms=None, accel=None, *,
 
 
 def profile_render(scene_path: str, cfg=None, scale: float = 1.0,
-                   repeats: int = 3, trace_dir: Optional[str] = None, *,
+                   repeats: int = 3, trace_dir: Optional[str] = None,
+                   backward: bool = False, *,
                    device="cuda") -> Dict[str, float]:
     """Phase-timed render of a scene file on `device` (the card unless the
     caller asks for "cpu") -> a metrics dict.
@@ -100,10 +101,14 @@ def profile_render(scene_path: str, cfg=None, scale: float = 1.0,
     Phases: load, accel_build (kdtree and sweep), first_call (the kernel
     build and a first frame), render (the best of `repeats` warm frames,
     under device_trace when trace_dir is given).  rays_per_sec = H*W*spp /
-    render seconds."""
+    render seconds.  With backward=True, one loss_and_grad step on the
+    first min(H*W, chunk_size) ray ids against a zero target is timed too:
+    grad_compile (the first, cold step), grad_seconds (the best of
+    `repeats` warm steps) and grad_rays_per_sec (ids / grad_seconds)."""
     from ..config import RenderConfig
     from ..models.loader import parse_scene_file
-    from ..ops.render import build_accel, render_frame, resolve_device
+    from ..ops.render import (TorchUniforms, build_accel, render_frame,
+                              resolve_device)
 
     cfg = cfg or RenderConfig()
     dev = resolve_device(device)
@@ -140,4 +145,30 @@ def profile_render(scene_path: str, cfg=None, scale: float = 1.0,
     metrics["height"] = scene.height
     metrics["width"] = scene.width
     metrics["spp"] = cfg.samples_per_pixel
+
+    if backward:
+        from ..ops.grad import loss_and_grad, split_params
+
+        params, skeleton = split_params(scene)
+        n = min(scene.height * scene.width, cfg.chunk_size)
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        target = torch.zeros((n, 3), dtype=scene.vertices.dtype, device=dev)
+        acc = None if accel is None else accel.to(dev)
+
+        def step():
+            loss_and_grad(params, skeleton, cfg, ids, target,
+                          TorchUniforms.seeded(0, dev, scene.vertices.dtype),
+                          acc)
+            _sync(dev)
+
+        with timer.phase("grad_compile"):
+            step()
+        best_g = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            step()
+            best_g = min(best_g, time.perf_counter() - t0)
+        metrics["grad_seconds"] = best_g
+        metrics["grad_rays_per_sec"] = n / best_g
+        metrics["grad_compile"] = timer.seconds["grad_compile"]
     return metrics

@@ -479,26 +479,36 @@ def test_kd_kernel_near_tie_grid_matches_plain():
         assert int(got[1].sum()) > 150
 
 
-def test_kd_wrapper_refuses_staging_that_does_not_fit(scene, kdtree):
-    """Unreachable nodes appended until the node table fits shared memory
-    alone but not beside the two staging tiles: refused before launch."""
-    s, g, _ = scene
-    o, d, _ = rays(s.cam_pos, 64, seed=17)
-    extra = intersect_kd.SMEM_LIMIT // intersect_kd.NODE_BYTES \
-        - kdtree.num_nodes
-    z3 = torch.zeros(extra, 3, device=DEV)
-    none = torch.full((extra,), -1, dtype=torch.int32, device=DEV)
-    big = kdtree.replace(
-        node_min=torch.cat([kdtree.node_min, z3]),
-        node_max=torch.cat([kdtree.node_max, z3]),
-        child0=torch.cat([kdtree.child0, none]),
-        child1=torch.cat([kdtree.child1, none]),
-        leaf_id=torch.cat([kdtree.leaf_id, none]))
-    before = intersect_kd.LAUNCHES
-    with pytest.raises(ValueError, match="staging"):
-        intersect_kd.kd_select_cuda(o, d, g.v0, g.e1, g.e2, EPS, True, None,
-                                    big)
-    assert intersect_kd.LAUNCHES == before
+@pytest.fixture(scope="module")
+def deep_tree():
+    """The 106,510-triangle scene (64 x 64 camera) with its depth-14
+    kd-tree (5,735 nodes, more than a block's shared memory could hold
+    beside the staging tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s = T.parse_scene_dict(mixed_doc(64, 64))
+    tree = build_kdtree_for_scene(s, max_depth=14).to(DEV)
+    s = s.to(DEV)
+    return s, T.derive_geometry(s), tree
+
+
+@pytest.mark.parametrize("shuffled", [False, True],
+                         ids=["coherent", "shuffled"])
+@pytest.mark.parametrize("cull", [True, False])
+def test_kd_kernel_on_a_tree_larger_than_shared_memory(deep_tree, shuffled,
+                                                       cull):
+    """The depth-14 tree of the full scene (its node table larger than
+    shared memory): the kernel equals the plain walk, its counter's pair
+    tests the walk's pair count."""
+    s, g, tree = deep_tree
+    assert tree.num_nodes > 5555
+    o, d = camera_rays(s, shuffled)
+    args = (o, d, g.v0, g.e1, g.e2, EPS, cull, g.tri_valid, tree)
+    counter = torch.zeros(3, dtype=torch.int64, device=DEV)
+    got = intersect_kd.kd_select_cuda(*args, counter=counter)
+    assert_equal(got, kd_select(*args))
+    assert 0 < int(got[1].sum()) < len(o)
+    assert counter.tolist()[2] == kd_work_pairs(*args)
 
 
 @pytest.mark.parametrize("intersector", ["sweep", "kdtree"])

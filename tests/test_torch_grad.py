@@ -191,6 +191,18 @@ def test_texture_param_gradients_flow(fd_setup):
     assert float(g["atlas"].abs().max()) > 0
 
 
+def test_loss_and_grad_of_padding_ids_is_zero(fd_setup):
+    """Ids past the frame reach no param: zero gradients, as JAX's grad
+    gives, and the loss of zero colors."""
+    params, skeleton, cfg, ids, _ = fd_setup
+    target = torch.full((len(ids), 3), 0.5, dtype=torch.float64)
+    loss, grads = G.loss_and_grad(params, skeleton, cfg, ids + len(ids),
+                                  target, SeededUniforms(7, 0))
+    assert float(loss) == 0.25
+    for k, g in grads.items():
+        assert g.shape == params[k].shape and not g.any(), k
+
+
 # ---- SGD steps ------------------------------------------------------------
 
 def _darker_target(setup):

@@ -277,17 +277,29 @@ def test_kdtree_select_fn_packs_once(scenes):
     assert intersect_kd.PACKS == before + 1
 
 
-def test_kd_kernel_shared_memory_is_checked():
-    """The wrapper's shared-memory check: the full scene's 299 nodes and
-    both staging tiles fit; a node table that fits alone but not beside
-    the staging tiles, and one that does not fit at all, are refused."""
-    need = intersect_kd.kd_smem_bytes(299)
-    assert need == 299 * 40 + intersect_kd.STAGE_BYTES
-    fits_alone = intersect_kd.SMEM_LIMIT // 40
-    with pytest.raises(ValueError, match="staging"):
-        intersect_kd.kd_smem_bytes(fits_alone)
-    with pytest.raises(ValueError, match="does not fit the kernel"):
-        intersect_kd.kd_smem_bytes(fits_alone + 1)
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("name", sorted(DOCS))
+def test_kd_select_on_a_deep_tree_matches_jax(scenes, name, cull):
+    """A depth-14 tree with leaves of at most 4 triangles, many more nodes
+    than the default build (the kernel reads every node record from device
+    memory, whatever the tree's size): the port's kd select (the plain walk
+    on CPU tensors) equals JAX's kd_select, and its hits equal brute
+    force's."""
+    js, jg, ts, tg = scenes[name]
+    jtree = j_build_for_scene(js, 14, 4, use_native=False)
+    tree = port_tree(jtree)
+    assert tree.num_nodes > 4 * build_kdtree_for_scene(ts).num_nodes
+    o, d, _ = rays(ts.cam_pos.numpy(), n=256, seed=4)
+    ji, jh = j_kd_select(jnp.asarray(o), jnp.asarray(d), jg.v0, jg.e1,
+                         jg.e2, EPS, cull, jg.tri_valid, jtree)
+    args = (torch.from_numpy(o), torch.from_numpy(d), tg.v0, tg.e1, tg.e2,
+            EPS, cull, tg.tri_valid)
+    ki, kh = intersect_kd.kd_select_cuda(*args, tree)
+    assert np.array_equal(kh.numpy(), np.asarray(jh))
+    assert np.array_equal(ki.numpy(), np.asarray(ji))
+    bi, bh = mt_select(*args)
+    assert torch.equal(kh, bh) and torch.equal(ki[kh], bi[bh])
+    assert 0 < int(kh.sum()) < len(o)
 
 
 def test_kd_select_refuses_a_deep_tree(scenes):

@@ -187,6 +187,8 @@ def test_import_pulls_in_no_jax():
             "simd_raytracer_tpu_torch.ops.intersect_kd, "
             "simd_raytracer_tpu_torch.accel.traverse, "
             "simd_raytracer_tpu_torch.parallel.tiles, "
+            "simd_raytracer_tpu_torch.parallel.sharding, "
+            "simd_raytracer_tpu_torch.graft_entry, "
             "simd_raytracer_tpu_torch.models.camera, "
             "simd_raytracer_tpu_torch.utils.animation, "
             "simd_raytracer_tpu_torch.utils.checkpoint, "

@@ -285,6 +285,20 @@ def test_profile_render_and_device_trace(scene_file, tmp_path):
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
+def test_profile_render_backward_times_a_gradient_step(scene_file):
+    """backward=True adds JAX's keys: one loss_and_grad step on
+    min(H*W, chunk_size) ids, cold and warm."""
+    cfg = T.RenderConfig(chunk_size=64, max_ray_depth=1,
+                         bounce_mode="roulette", intersector="sweep")
+    m = profiling.profile_render(scene_file, cfg, scale=0.5, repeats=1,
+                                 backward=True, device="cpu")
+    for k in ("grad_seconds", "grad_rays_per_sec", "grad_compile"):
+        assert np.isfinite(m[k]) and m[k] > 0, k
+    assert m["grad_rays_per_sec"] == pytest.approx(64 / m["grad_seconds"])
+    assert "grad_seconds" not in profiling.profile_render(
+        scene_file, cfg, scale=0.5, repeats=1, device="cpu")
+
+
 # --- native loader and PPM ---------------------------------------------
 
 def test_native_loader_matches_python(scene_file, tmp_path):
@@ -299,6 +313,11 @@ def test_native_loader_matches_python(scene_file, tmp_path):
     bad.write_text('{"settings": {"image_settings": {"height": 4}}}')
     with pytest.raises(ValueError):
         parse_scene_file(str(bad), use_native=True)
+
+
+def test_native_available_is_whether_the_library_loads():
+    from simd_raytracer_tpu_torch import native
+    assert native.native_available() is (native._load() is not None)
 
 
 def test_native_ppm_matches_python():
