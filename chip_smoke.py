@@ -39,8 +39,8 @@ Phases, one result line each:
      frame of each under torch.profiler (device busy time, top device
      kernels), and one headline frame with CUDA events around every sweep
      kernel call (time per call by kind of ray);
-  8. diffuse GI: small renders on the CPU and on CUDA with the same
-     uniforms (gi 1 and 2, split + brute force and roulette + sweep),
+  8. diffuse GI: small renders (64x64) on the CPU and on CUDA with the
+     same uniforms (gi 1 and 2, split + brute force and roulette + sweep),
      images within 1e-4; then one timed GI frame of the full scene;
   9. gradients of a small scene on CUDA against the CPU: losses within
      1e-5 relative, every gradient within 1e-3 * max|g_cpu| + 1e-6 plus
@@ -49,11 +49,17 @@ Phases, one result line each:
      steps of 65,536 rays, timed;
  11. northstar: the same at 128 spp with GI, after a finite-difference
      check of d loss / d light_intensity;
- 12. refexact (split + march): small renders on the CPU and on CUDA under
-     the sweep, brute force and fast selects, then one timed frame of the
-     full scene;
+ 12. refexact (split + march): small renders (64x64) on the CPU and on
+     CUDA under the sweep, brute force and fast selects, then timed
+     480x480 frames of the full scene under the sweep, under fast
+     (bench.py's own select: every select through the fast kernel, none
+     through its plain version) and under brute force, each rendered
+     twice, bitwise equal; the fast frame held against the brute-force one
+     by phase 15's PPM rule, but for at most FAST_FLIPS (1) pixel that
+     must be a last-ulp flip seen on its primary ray (a near tie, or a ray
+     on an edge) where the plain fast version picks the kernel's winner;
  13. where the time of phase 8's GI frame, one SGD step of phases 10 and
-     11 and phase 12's frame goes, as phase 7;
+     11 and phase 12's sweep and fast frames goes, as phase 7;
  14. the kd-tree of the full scene built by NumPy and by the native
      builder (equal arrays); the kd kernel exact against its plain
      version on the middle 16,384-ray primary chunk of phase 15's bucket
@@ -84,12 +90,26 @@ Phases, one result line each:
      sources, timed beside phase 5's), one sharded SGD step of phase 10's
      65,536 rays (bitwise equal to train_step), the port's dry run
      (graft_entry.dryrun_multichip(1)).
+ 18. the fast kernel on the calls of a 480x480 refexact frame (split +
+     march + fast) of the full scene: its middle 16,384-ray primary chunk
+     (which hits), the largest closest-hit march call (a t_max window) and
+     the largest any-hit shadow call, each exact against the plain
+     version, timed beside K1, with its bound (each pair the call needs
+     charged FAST_STAGE_OPS for the tests it reaches, over 67 TFLOP/s);
+ 19. the mxu select (torch.matmul and torch ops, no kernel): a 48x48 spp 4
+     render on the CPU and on CUDA (JAX's bar for mxu renders: 2e-3 *
+     max(1, |a|) on more than 99% of values); the refexact frame's middle
+     primary chunk timed beside its products alone (the "library" time)
+     and K1, winners against K1 by JAX's select bar; one timed 480x480
+     frame of the full scene (split, spp 1, depth 5) against the
+     brute-force frame.
 Phases 5, 8-12 and 15-17 each count the kernel launches of their own
 paths from zero and fail if a kernel of the path never launched; the
-kernel line reports their sum, with phase 6's and 14's times and bounds of
-the sweep's full-reach secondary call and K1's and the kd kernel's primary
-chunk (named by each entry's `call`).  The last three lines
-are the card, a JSON object per kernel and {"ok": true, ...}.
+kernel line reports their sum, with phase 6's, 14's and 18's times and
+bounds of the sweep's full-reach secondary call and K1's, the kd kernel's
+and the fast kernel's primary chunks (named by each entry's `call`).  The
+last three lines are the card, a JSON object per kernel and
+{"ok": true, ...}.
 Every phase raises on failure, so the script exits non-zero.  It needs a
 CUDA device and exits 1 without one.
 """
@@ -113,6 +133,7 @@ DEV = "cuda"
 K1 = "mt_select"
 SWEEP = "sweep_select"
 KD = "kd_select"
+FAST = "fast_select"
 KERNELS = {
     K1: {"name": K1, "route": "cuda",
          "source": "simd_raytracer_tpu_torch/csrc/mt_select.cu",
@@ -124,16 +145,29 @@ KERNELS = {
     KD: {"name": KD, "route": "cuda",
          "source": "simd_raytracer_tpu_torch/csrc/kd_select.cu",
          "replaces": "simd_raytracer_tpu/accel/traverse.py:57 (jnp)"},
+    FAST: {"name": FAST, "route": "cuda",
+           "source": "simd_raytracer_tpu_torch/csrc/fast_select.cu",
+           "replaces": "simd_raytracer_tpu/ops/intersect_mxu.py:67 (jnp)"},
 }
-MAX_ERR = {K1: 0, SWEEP: 0, KD: 0}
-# Edge of the square frames of phases 5 (default), 8 and 12, and the ray
-# ids of each SGD step of phases 10 and 11 (bench.py's chunk).
+MAX_ERR = {K1: 0, SWEEP: 0, KD: 0, FAST: 0}
+# Edge of the square frames of phases 5 (default), 8, 12, 18 and 19, and
+# the ray ids of each SGD step of phases 10 and 11 (bench.py's chunk).
 FRAME = 480
+# Pixels of phase 12's fast frame that may break the PPM rule against the
+# jnp frame, each a last-ulp flip on its primary ray: the full scene's
+# 480x480 frame has one, (8, 387), whose ray meets a triangle on an edge
+# that the division-free accept takes and K1 rejects.
+FAST_FLIPS = 1
+# Edge of the small-scene images that phases 8 and 12 render on the CPU
+# and on CUDA.
+SMALL_CHECK = 64
 TRAIN_RAYS = 65536
 # Edge of the reference binary's full-width frame (phase 15).
 REFBIN = 960
-# The kernel each select name runs on the card ("fast" is plain torch).
-SELECT_KERNEL = {"jnp": K1, "pallas": K1, "sweep": SWEEP, "kdtree": KD}
+# The kernel each select name runs on the card ("mxu" is torch.matmul and
+# torch ops).
+SELECT_KERNEL = {"jnp": K1, "pallas": K1, "sweep": SWEEP, "kdtree": KD,
+                 "fast": FAST}
 
 
 # The argument names of ops/intersect_sweep.py::sweep_select before eps,
@@ -457,11 +491,23 @@ def event_ms(fn, reps):
 OPS_PER_PAIR = 54
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# The fast kernel (csrc/fast_select.cu) as written: the float operations a
+# pair costs at each test it reaches (a masked triangle costs none), in
+# order: det (3 mul, 2 add, the negation), its sign, |det| and the cull
+# test; u_num (6 mul, 5 add), its signed value and two comparisons; v_num
+# (6 mul, 5 add), its signed value, u + v and two comparisons; t_num (3
+# mul, 3 add), its signed value, eps |det| and one comparison; the window
+# (t_max |det|, one comparison); an accepted closest-hit pair's division
+# and its comparison with the best.  Counted per call by fast_stage_pairs.
+# 67 TFLOP/s counts an FMA as two operations; built without contraction,
+# the kernel issues one operation an instruction, so it can reach at most
+# half that rate (the bound is stated against the published peak).
+FAST_STAGE_OPS = (9, 14, 15, 9, 2, 2)
 
 
-def bound(pairs, n_bytes):
+def bound(pairs, n_bytes, ops_per_pair=OPS_PER_PAIR):
     """(bound ms, bound_by) of `pairs` pair tests moving `n_bytes`."""
-    ops_ms = pairs * OPS_PER_PAIR / PEAK_F32 * 1e3
+    ops_ms = pairs * ops_per_pair / PEAK_F32 * 1e3
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -755,18 +801,19 @@ def phase_profile(phase, runs):
 
 
 def counts_reset() -> None:
-    from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_kd,
-                                              intersect_sweep)
+    from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
+                                              intersect_kd, intersect_sweep)
     intersect_brute.LAUNCHES = 0
     intersect_sweep.LAUNCHES = 0
     intersect_kd.LAUNCHES = 0
+    intersect_fast.LAUNCHES = 0
 
 
 def counts() -> dict:
-    from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_kd,
-                                              intersect_sweep)
+    from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
+                                              intersect_kd, intersect_sweep)
     return {K1: intersect_brute.LAUNCHES, SWEEP: intersect_sweep.LAUNCHES,
-            KD: intersect_kd.LAUNCHES}
+            KD: intersect_kd.LAUNCHES, FAST: intersect_fast.LAUNCHES}
 
 
 def need_launches(what, launches, *kernels) -> None:
@@ -797,13 +844,15 @@ def phase_gi(small, full, accel):
                                     bounce_mode="roulette",
                                     intersector="sweep")}
     out = {}
+    small = small.replace(height=SMALL_CHECK, width=SMALL_CHECK)
     for gi in (1, 2):
         for name, kw in cases.items():
             cfg = T.RenderConfig(diffuse_reflection_ray_count=gi, **kw)
             out[f"gi{gi} {name}"] = render_cpu_vs_cuda(
                 f"GI gi={gi} {name}", small, cfg, 20 + gi)
-    report("8 GI small render cpu vs cuda",
-           triangles=int(small.tri_valid.sum()), cases=out)
+    report("8 GI small render cpu vs cuda", width=SMALL_CHECK,
+           height=SMALL_CHECK, triangles=int(small.tri_valid.sum()),
+           cases=out)
     counts_reset()
     cfg = gi_cfg()
     frame = full.replace(height=FRAME, width=FRAME)
@@ -948,23 +997,360 @@ def phase_train(label, phase, scene, accel, spp, gi, fd):
     return launches, (one_step, per_step, True)
 
 
-def phase_refexact(small, full, accel):
+def refexact_cfg(intersector):
+    """bench.py's refexact estimator (split + march, spp 1, depth 5; its
+    select is "fast", bench.py:155-158) under `intersector`."""
     import simd_raytracer_tpu_torch as T
+    return T.RenderConfig(occlusion_mode="march", intersector=intersector)
+
+
+def phase_refexact(small, full, accel):
+    """Small renders on the CPU and on CUDA under the sweep, brute force
+    and fast selects; then the timed 480x480 frame of the full scene under
+    the sweep and under fast (bench.py's own select: every select through
+    csrc/fast_select.cu, the plain fast version never run on the card),
+    each rendered twice, bitwise equal; the fast frame held against the
+    brute-force frame of the same configuration by phase 15's PPM rule
+    (fast_vs_jnp: fast may flip last-ulp ties on shared edges).  The fast
+    wrapper sends CUDA tensors to the kernel only (a failed launch
+    raises), so the kernel's launch count shows the frame went through
+    it.  The small renders are SMALL_CHECK square: their CPU side is most
+    of the phase."""
     out = {}
+    small = small.replace(height=SMALL_CHECK, width=SMALL_CHECK)
     for isect in ("sweep", "jnp", "fast"):
-        cfg = T.RenderConfig(max_ray_depth=5, occlusion_mode="march",
-                             intersector=isect)
+        cfg = refexact_cfg(isect)
         out[isect] = render_cpu_vs_cuda(f"refexact {isect}", small, cfg, 30)
-    report("12 refexact small render cpu vs cuda",
-           triangles=int(small.tri_valid.sum()), cases=out)
-    counts_reset()
+    report("12 refexact small render cpu vs cuda", width=SMALL_CHECK,
+           height=SMALL_CHECK, triangles=int(small.tri_valid.sum()),
+           cases=out)
     frame = full.replace(height=FRAME, width=FRAME)
-    cfg = T.RenderConfig(occlusion_mode="march", intersector="sweep")
+    cfg = refexact_cfg("sweep")
+    counts_reset()
     _, _, frame_s = render_timed("refexact frame split+march+sweep", frame,
                                  cfg, accel, frames=1, phase="12")
     launches = counts()
-    need_launches("refexact frame", launches, SWEEP)
-    return launches, (frame_run(frame, cfg, accel), frame_s, True)
+    need_launches("refexact frame (sweep)", launches, SWEEP)
+
+    fcfg = refexact_cfg("fast")
+    counts_reset()
+    fimg, _, fast_s = render_timed("refexact frame split+march+fast", frame,
+                                   fcfg, None, frames=1, phase="12")
+    fast_launches = counts()
+    need_launches("refexact frame (fast)", fast_launches, FAST)
+    jimg, _, jnp_s = render_timed("refexact frame split+march+jnp", frame,
+                                  refexact_cfg("jnp"), None, frames=1,
+                                  phase="12")
+    report("12 refexact frame fast vs jnp", width=FRAME, height=FRAME,
+           fast_frame_s=fast_s, jnp_frame_s=jnp_s, sweep_frame_s=frame_s,
+           fast_launches=fast_launches[FAST],
+           vs_jnp=fast_vs_jnp(frame, fcfg, fimg, jimg))
+    for k in launches:
+        launches[k] += fast_launches[k]
+    return launches, {
+        "refexact frame (sweep)": (frame_run(frame, cfg, accel), frame_s,
+                                   True),
+        "refexact frame (fast)": (frame_run(frame, fcfg, None), fast_s,
+                                  False)}
+
+
+def fast_vs_jnp(frame, cfg, got, ref):
+    """Hold the fast frame against the brute-force (jnp) frame of the same
+    configuration.  fast may flip a winner where two triangles tie to the
+    last ulp, or hit a shared edge that the classic formulation's rounding
+    leaves open (or the reverse), and such a pixel may change colour
+    wholly: every pixel with a PPM channel off by more than 1 must be
+    explained on its pixel-centre primary ray (spp 1) through the fast
+    kernel and K1, either by two different winners whose refined t agree
+    within 1e-6 * t, or by one side's winner whose ray meets it on an edge
+    (its smallest barycentric within 1e-5); the plain fast version on the
+    card, a second witness of the estimator, must pick the kernel's
+    winner on that ray; and there may be at most FAST_FLIPS such pixels.
+    The other pixels keep phase 15's PPM rule (max |d| reported, not
+    bounded)."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.models.camera import primary_rays
+    from simd_raytracer_tpu_torch.ops import intersect_fast as F
+    from simd_raytracer_tpu_torch.ops.intersect import mt_refine
+    from simd_raytracer_tpu_torch.ops.intersect_brute import mt_select_brute
+    from simd_raytracer_tpu_torch.utils.ppm import image_to_u8
+    got, ref = got.cpu(), ref.cpu()
+    big = (np.abs(image_to_u8(got).astype(int)
+                  - image_to_u8(ref).astype(int)) > 1).any(axis=-1)
+    ys, xs = np.nonzero(big)
+    flips = []
+    if len(ys):
+        geom = T.derive_geometry(frame)
+        px = torch.from_numpy(xs).to(DEV)
+        py = torch.from_numpy(ys).to(DEV)
+        half = torch.full(px.shape, 0.5, device=DEV)
+        o, d = primary_rays(frame, cfg.fov_degrees, px, py, half, half)
+        args = (o, d, geom.v0, geom.e1, geom.e2, EPS, True, geom.tri_valid)
+        sides = {"fast": F.mt_select_fast(*args, table=F.table_of(geom)),
+                 "jnp": mt_select_brute(*args, tri_soa=geom.tri_soa)}
+        plain = F.mt_select_fast_reference(*args, table=F.table_of(geom))
+        refined = {}
+        for name, (idx, _) in sides.items():
+            g = idx.long()
+            t, u, v = mt_refine(o, d, geom.v0[g], geom.e1[g], geom.e2[g], EPS)
+            refined[name] = (t, torch.minimum(torch.minimum(u, v),
+                                              1.0 - u - v))
+        for i, (y, x) in enumerate(zip(ys.tolist(), xs.tolist())):
+            row = {"pixel": [x, y]}
+            for name, (idx, hit) in sides.items():
+                row[name] = dict(idx=int(idx[i]), hit=bool(hit[i]),
+                                 t=float(refined[name][0][i]),
+                                 min_barycentric=float(refined[name][1][i]))
+            f, j = row["fast"], row["jnp"]
+            row["plain_fast_agrees"] = (bool(plain[1][i]) == f["hit"] and (
+                not f["hit"] or int(plain[0][i]) == f["idx"]))
+            if f["hit"] and j["hit"] and f["idx"] != j["idx"]:
+                row["why"] = "near tie"
+                row["explained"] = abs(f["t"] - j["t"]) <= 1e-6 * abs(j["t"])
+            elif f["hit"] != j["hit"]:
+                row["why"] = "edge"
+                side = f if f["hit"] else j
+                row["explained"] = abs(side["min_barycentric"]) <= 1e-5
+            else:
+                row["why"] = "same primary winner"
+                row["explained"] = False
+            flips.append(row)
+    keep = torch.from_numpy(~big)
+    out = vs_brute_force("refexact frame (fast) outside its flips",
+                         got[keep], ref[keep], max_abs=None)
+    out.update(max_abs_err_all=float((got - ref).abs().max()),
+               pixels_differing_all=int((got != ref).any(dim=-1).sum()),
+               flips=flips)
+    if not (all(r["explained"] and r["plain_fast_agrees"] for r in flips)
+            and len(flips) <= FAST_FLIPS):
+        raise AssertionError(f"refexact frame (fast) vs jnp: {out}")
+    return out
+
+
+def fast_stage_pairs(args, hit) -> list:
+    """The pairs of one fast call that reach each test of FAST_STAGE_OPS,
+    from the call's table and the plain version's numerators
+    (ops/intersect_fast.py::numerators: the kernel's bits decide each
+    test).  Every ray meets every unmasked triangle, but an any-hit ray
+    that hits needs one pair, through every test up to the accept."""
+    from simd_raytracer_tpu_torch.models.scene import cross3
+    from simd_raytracer_tpu_torch.ops import intersect_fast as F
+    tab, eps, cull = args["table"], args["eps"], args["cull"]
+    windowed, any_hit = args["t_max"] is not None, args["any_hit"]
+    rays = ~hit if any_hit else torch.ones_like(hit)
+    o = args["o"].float()[rays] - tab.center[None, :]
+    d = args["d"].float()[rays]
+    c = cross3(o, d)
+    tm = args["t_max"].float()[rays][:, None] if windowed else None
+    mask = args["tri_mask"]
+    n = torch.zeros(6, dtype=torch.int64, device=o.device)
+    step = max(16, (1 << 25) // max(o.shape[0], 1))
+    for s in range(0, tab.soa.shape[1], step):
+        det, t_num, u_num, v_num = F.numerators(o, d, c,
+                                                tab.soa[:, s:s + step])
+        sgn = torch.where(det >= 0.0, 1.0, -1.0)
+        adet = det * sgn
+        us, vs, ts = u_num * sgn, v_num * sgn, t_num * sgn
+        reach = torch.ones_like(det, dtype=torch.bool)
+        if mask is not None:
+            reach = reach & mask[None, s:s + step].bool()
+        reached = [reach]
+        for test in ((det > eps) if cull else (adet > eps),
+                     (us >= 0.0) & (us <= adet),
+                     (vs >= 0.0) & (us + vs <= adet),
+                     ts > eps * adet,
+                     (ts <= tm * adet) if windowed else True):
+            reach = reach & test
+            reached.append(reach)
+        n += torch.stack([x.sum() for x in reached])
+    n = n.tolist()
+    if not windowed:
+        n[4] = 0                # no window test
+    if any_hit:
+        n[5] = 0                # no division; a hit ends the ray
+        hits = int(hit.sum())
+        n = [k + hits for k in n[:4]] + [n[4] + hits * windowed, 0]
+    return n
+
+
+def fast_call(label, a, geom):
+    """Hold the fast kernel on one call exactly against its plain version
+    on the same CUDA tensors, both reading the frame's table (table_of);
+    time both and K1 on the same call.  Bound: the operations the call's
+    pairs need, each pair charged FAST_STAGE_OPS for the tests it reaches
+    (fast_stage_pairs), over 67 TFLOP/s, or the bytes the call must
+    move."""
+    from simd_raytracer_tpu_torch.ops import intersect_fast as F
+    from simd_raytracer_tpu_torch.ops.intersect_brute import (k1_split,
+                                                              mt_select_brute)
+    args = dict(o=a["o"], d=a["d"], v0=geom.v0, e1=geom.e1, e2=geom.e2,
+                eps=a["eps"], cull=a["cull"], tri_mask=a["tri_mask"],
+                t_max=a["t_max"], any_hit=a["any_hit"],
+                table=F.table_of(geom))
+    got = F.mt_select_fast(**args)
+    exact(FAST, label, got, F.mt_select_fast_reference(**args))
+    r, t = args["o"].shape[0], geom.v0.shape[0]
+    live = t if args["tri_mask"] is None else int(args["tri_mask"].sum())
+    hits = int(got[1].sum())
+    stages = fast_stage_pairs(args, got[1])
+    ops = sum(k * n for k, n in zip(FAST_STAGE_OPS, stages))
+    ms, plain_ms, runs = time_call(lambda: F.mt_select_fast(**args),
+                                   lambda: F.mt_select_fast_reference(**args),
+                                   5)
+    k1 = {k: v for k, v in args.items() if k != "table"}
+    k1_ms = event_ms(lambda: mt_select_brute(**k1, tri_soa=geom.tri_soa), 5)
+    # o, d and t_max in, idx and hit out: 33 bytes a ray; the table's 16
+    # rows and the mask: 68 bytes a triangle.
+    b_ms, by = bound(ops, 33 * r + 68 * t, 1)
+    return dict(kind="march" if (args["t_max"] is not None
+                                 and not args["any_hit"])
+                else ray_kind(args["any_hit"], args["cull"]),
+                rays=r, hits=hits, triangles=t, live_triangles=live,
+                split=k1_split(r, t, torch.cuda.get_device_properties(0)
+                               .multi_processor_count),
+                ms=ms, runs_ms=runs, plain_ms=plain_ms,
+                pairs_reaching_each_test=stages, operations=ops,
+                operations_per_pair=ops / max(stages[0], 1),
+                bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
+                k1_ms_same_call=k1_ms, exact=True)
+
+
+def phase_fast(full):
+    """The fast kernel at full width: on the calls of a 480x480 refexact
+    frame (split + march + fast) of the full scene, the largest closest-hit
+    march call (a t_max window), the largest any-hit shadow call, and its
+    middle 16,384-ray primary chunk (linear order: the image's middle rows,
+    which hit the scene); each exact against the plain version, timed
+    beside K1 with its bound."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.ops import intersect_fast
+    from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
+    frame = full.replace(height=FRAME, width=FRAME)
+    cfg = refexact_cfg("fast")
+
+    def kind_of(a):
+        if a["any_hit"]:
+            return "shadow", a["o"].shape[0]
+        return ("march" if a["t_max"] is not None
+                else ray_kind(False, a["cull"])), a["o"].shape[0]
+
+    kept = capture(frame_run(frame, cfg, None), intersect_fast,
+                   "mt_select_fast", kind_of)
+    geom = T.derive_geometry(frame)
+    chunk = make_ray_chunks(frame, cfg).shape[0] // 2
+    o, d = camera_rays(frame, cfg, chunk)
+    primary = dict(o=o, d=d, eps=EPS, cull=True, tri_mask=geom.tri_valid,
+                   t_max=None, any_hit=False)
+    calls = {
+        "fast primary chunk (refexact frame)": fast_call(
+            "fast primary chunk", primary, geom),
+        "fast march call (refexact frame)": fast_call(
+            "fast march", kept["march"], geom),
+        "fast shadow (refexact frame)": fast_call(
+            "fast shadow", kept["shadow"], geom),
+    }
+    torch.cuda.synchronize()
+    if calls["fast primary chunk (refexact frame)"]["hits"] < len(o) // 2:
+        raise AssertionError("the fast primary chunk misses the scene")
+    report("18 fast kernel on the refexact calls",
+           triangles=int(geom.tri_valid.sum()),
+           calls_seen={k: int(v["o"].shape[0]) for k, v in kept.items()},
+           ops_per_test=FAST_STAGE_OPS, calls=calls, exact=True)
+    return calls
+
+
+def jax_bar(what, a, b) -> dict:
+    """JAX's bar for mxu renders (tests/test_bounce_modes.py:109-123):
+    |a - b| <= 2e-3 * max(1, |a|) on more than 99% of values."""
+    a, b = a.cpu(), b.cpu()
+    within = float(((a - b).abs() <= 2e-3 * a.abs().clamp_min(1.0))
+                   .float().mean())
+    out = dict(max_abs_err=float((a - b).abs().max()),
+               share_within_bar=within)
+    if not (bool(torch.isfinite(b).all()) and within > 0.99):
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
+def phase_mxu(small, full):
+    """The mxu select on the card: a small render on the CPU and on CUDA
+    (JAX's bar); the refexact frame's middle primary chunk, timed beside
+    the products alone (torch.matmul over the same blocks: the "library"
+    time) and K1, its winners held against K1's by JAX's select bar; one
+    timed FRAME x FRAME frame of the full scene (the default
+    configuration: split, spp 1, depth 5), rendered twice (bitwise equal)
+    and held against the brute-force frame by JAX's render bar."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.ops import intersect_mxu as M
+    from simd_raytracer_tpu_torch.ops.intersect_brute import mt_select_brute
+    from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
+    from torch_scenes import SeededUniforms
+    t0 = time.perf_counter()
+    cfg = T.RenderConfig(max_ray_depth=3, samples_per_pixel=4,
+                         intersector="mxu")
+    scene = small.replace(height=48, width=48)
+    imgs = {dev: T.render_frame(scene, cfg, device=dev,
+                                uniforms=lambda c: SeededUniforms(40, c))
+            for dev in ("cpu", DEV)}
+    small_vs = jax_bar("mxu small render cuda vs cpu", imgs["cpu"], imgs[DEV])
+    small_s = time.perf_counter() - t0
+
+    frame = full.replace(height=FRAME, width=FRAME)
+    geom = T.derive_geometry(frame)
+    chunk = make_ray_chunks(frame, refexact_cfg("mxu")).shape[0] // 2
+    o, d = camera_rays(frame, refexact_cfg("mxu"), chunk)
+    args = (o, d, geom.v0, geom.e1, geom.e2, EPS, True, geom.tri_valid)
+    idx, hit = M.mt_select_mxu(*args)
+    k1_idx, k1_hit = mt_select_brute(*args, tri_soa=geom.tri_soa)
+    agree = float((hit == k1_hit).float().mean())
+    both = hit & k1_hit
+    idx_agree = float((idx[both] == k1_idx[both]).float().mean())
+    if not (agree > 0.999 and idx_agree > 0.999 and int(hit.sum()) > 0):
+        raise AssertionError(f"mxu chunk vs K1: hit flags agree on {agree}, "
+                             f"winners on {idx_agree}")
+    r, t = o.shape[0], geom.v0.shape[0]
+    rb = min(M.RAY_BLOCK, r)
+    tb = M.tri_block(rb)
+    feats = M.ray_features(o, d)
+    w = M.tri_weights(geom.v0, geom.e1, geom.e2)
+    blocks = [w[:, s:s + tb].reshape(-1, 10).T for s in range(0, t, tb)]
+
+    def products():
+        with M.full_f32_matmul():
+            for rs in range(0, r, rb):
+                for wb in blocks:
+                    torch.matmul(feats[rs:rs + rb], wb)
+
+    ms = event_ms(lambda: M.mt_select_mxu(*args), 2)
+    matmul_ms = event_ms(products, 2)
+    k1_ms = event_ms(lambda: mt_select_brute(*args, tri_soa=geom.tri_soa), 5)
+    # The products: 4 numerators x 10 multiply-adds a pair (80 float
+    # operations), features and weights read once, the (R, 4T) float32
+    # numerators written once.  The select's bound counts those operations
+    # alone (its epilogue's not counted), the numerators kept on chip.
+    mm_bound_ms, mm_by = bound(r * t, 40 * (r + 4 * t) + 16 * r * t, 80)
+    chunk_call = dict(rays=r, triangles=t, hits=int(hit.sum()),
+                      ray_block=rb, tri_block=tb,
+                      products=-(-r // rb) * len(blocks), ms=ms,
+                      bound_ms=bound(r * t, 0, 80)[0],
+                      matmul_ms=matmul_ms, matmul_bound_ms=mm_bound_ms,
+                      matmul_bound_by=mm_by, k1_ms_same_call=k1_ms,
+                      hit_flags_agree_with_k1=agree,
+                      winners_agree_with_k1=idx_agree)
+
+    mframe = full.replace(height=FRAME, width=FRAME)
+    img, _, frame_s = render_timed("mxu frame split", mframe,
+                                   T.RenderConfig(intersector="mxu"), None,
+                                   frames=1, phase="19")
+    ref = T.render_frame(mframe, T.RenderConfig(), device=DEV)
+    report("19 mxu select", small_render=dict(
+               width=48, height=48, spp=4, depth=3,
+               triangles=int(small.tri_valid.sum()), seconds=small_s,
+               **small_vs),
+           chunk_call=chunk_call,
+           frame=dict(width=FRAME, height=FRAME, spp=1, depth=5,
+                      frame_s=frame_s,
+                      vs_jnp=jax_bar("mxu frame vs jnp", ref, img)))
 
 
 def kd_args(a, tree):
@@ -1175,9 +1561,10 @@ def phase_kd(scene):
     return calls
 
 
-def vs_brute_force(what, got, ref):
-    """Hold a kd frame against the brute-force frame: max |d| 1e-4, PPM
-    channels off by at most 1 on at most 0.1% -> the differences."""
+def vs_brute_force(what, got, ref, max_abs=1e-4):
+    """Hold a frame (or a set of its pixels) against the brute-force
+    frame: max |d| at most max_abs (None: reported only), PPM channels off
+    by at most 1 on at most 0.1% -> the differences."""
     from simd_raytracer_tpu_torch.utils.ppm import image_to_u8
     got, ref = got.cpu(), ref.cpu()
     err = float((got - ref).abs().max())
@@ -1187,7 +1574,8 @@ def vs_brute_force(what, got, ref):
                pixels_differing=int((got != ref).any(dim=-1).sum()),
                ppm_channels_differing=off,
                ppm_max_channel_diff=int(np.abs(ua - ub).max()))
-    if not (bool(torch.isfinite(got).all()) and err <= 1e-4
+    if not (bool(torch.isfinite(got).all())
+            and (max_abs is None or err <= max_abs)
             and out["ppm_max_channel_diff"] <= 1 and off <= 0.001 * ua.size):
         raise AssertionError(f"{what} differs from the brute-force frame: "
                              f"{out}")
@@ -1518,14 +1906,16 @@ def main() -> int:
                                   ("northstar", "11", 128, 1)):
         paths[f"{phase} {label}"], runs[f"{label} step"] = phase_train(
             label, phase, full, accel, spp=spp, gi=gi, fd=gi > 0)
-    paths["12 refexact frame"], runs["refexact frame"] = phase_refexact(
-        small, full, accel)
+    paths["12 refexact frames"], more = phase_refexact(small, full, accel)
+    runs.update(more)
     phase_profile("13", runs)
     kd_calls = phase_kd(full)
     with tempfile.TemporaryDirectory() as tmp:
         paths["15 kd frame"] = phase_refbin(tmp)
         paths["16 progressive+orbit"] = phase_progressive(tmp, full, accel)
     paths["17 sharded"] = phase_sharded(full, accel, headline_s)
+    calls.update(phase_fast(full))
+    phase_mxu(small, full)
     for name, more in paths.items():
         if name[0] != "5":
             for k in launches:
@@ -1533,11 +1923,13 @@ def main() -> int:
 
     # The kernel line: the sweep on the GI frame's full-reach secondary
     # call, K1 on the headline's 16,384-ray primary chunk (phase 6), the
-    # kd kernel on the kd frame's (phase 14); `call` names it.
+    # kd kernel on the kd frame's (phase 14), the fast kernel on the
+    # refexact frame's (phase 18); `call` names it.
     calls.update(kd_calls)
     for kernel, what in ((K1, "K1 primary chunk (headline)"),
                          (SWEEP, "sweep full-reach secondary (GI frame)"),
-                         (KD, "kd primary chunk (kd frame)")):
+                         (KD, "kd primary chunk (kd frame)"),
+                         (FAST, "fast primary chunk (refexact frame)")):
         call = calls[what]
         KERNELS[kernel].update(
             launches=launches[kernel], max_abs_err=MAX_ERR[kernel],

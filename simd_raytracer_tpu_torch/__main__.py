@@ -27,7 +27,8 @@ def main(argv=None) -> int:
                     help="override the scene's width")
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--intersector", default="jnp",
-                    choices=["jnp", "fast", "pallas", "kdtree", "sweep"],
+                    choices=["jnp", "fast", "pallas", "mxu", "kdtree",
+                             "sweep"],
                     help="jnp and pallas both run the brute-force select")
     ap.add_argument("--bounce-mode", default="split",
                     choices=["split", "roulette"])

@@ -40,7 +40,8 @@ class RenderConfig:
     # (the hand-written CUDA kernel on a GPU), "sweep" the block-sparse
     # slice sweep, "kdtree" the kd-tree walk (a CUDA kernel on a GPU; the
     # t_max window emulated through refine), "fast" the division-free
-    # bilinear select (plain torch).  "mxu" is not ported.
+    # bilinear select (a CUDA kernel on a GPU), "mxu" the same numerators
+    # as a float32 matrix product (torch.matmul) and a torch epilogue.
     intersector: str = "jnp"
     # "split" follows the reference's full recursion tree; "roulette"
     # keeps one stochastically chosen child per ray.

@@ -175,8 +175,11 @@ def make_select_fn(intersector: str, accel=None,
     `geom`'s packed triangles when given; "sweep" binds the SweepData
     given as `accel`; "kdtree" the KdTree given as `accel` (the kd kernel
     on a GPU, bound to the pack of the tree and `geom`'s triangles, built
-    once for the pair); "fast" is the division-free bilinear select, plain torch on
-    every device (its JAX counterpart is jnp code, no kernel)."""
+    once for the pair); "fast" is the division-free bilinear select (its
+    CUDA kernel on a GPU), bound to `geom`'s table of per-triangle
+    constants, built once for the Geometry object; "mxu" the same
+    numerators as one float32 matrix product a block (torch.matmul) and a
+    plain torch epilogue."""
     if intersector in ("jnp", "pallas"):
         from .intersect_brute import mt_select_brute
         if geom is None:
@@ -189,8 +192,13 @@ def make_select_fn(intersector: str, accel=None,
         from .intersect_sweep import make_sweep_select
         return make_sweep_select(accel)
     if intersector == "fast":
-        from .intersect_fast import mt_select_fast
-        return mt_select_fast
+        from .intersect_fast import mt_select_fast, table_of
+        if geom is None:
+            return mt_select_fast
+        return functools.partial(mt_select_fast, table=table_of(geom))
+    if intersector == "mxu":
+        from .intersect_mxu import mt_select_mxu
+        return mt_select_mxu
     if intersector == "kdtree":
         if accel is None:
             raise ValueError("intersector='kdtree' needs an accel: build one "
@@ -200,9 +208,6 @@ def make_select_fn(intersector: str, accel=None,
             from .intersect_kd import packed
             pack = packed(accel, geom)
         return functools.partial(_kd_window_select, tree=accel, pack=pack)
-    if intersector == "mxu":
-        raise NotImplementedError(
-            "intersector='mxu' is not ported (ROADMAP A14)")
     raise ValueError(intersector)
 
 

@@ -1,79 +1,167 @@
-"""The division-free bilinear select ("fast"), in plain torch.
+"""The division-free bilinear select ("fast"): the CUDA kernel
+`csrc/fast_select.cu` and its plain version.
 
-Counterpart of `simd_raytracer_tpu.ops.intersect_mxu.mt_select_fast`, which
-is jnp code compiled by XLA, not a Pallas kernel: so it runs as torch ops
-on every device.  Every Moller-Trumbore numerator is a scalar triple
-product, bilinear in per-ray features (o, d, c = o x d) and per-triangle
-constants (n = e1 x e2, v0 . n, v0 x e2, e1 x v0); the accept tests compare
-numerators against |det| with no division, and one division per accepted
-pair gives the sort key.  The last ulps differ from the classic
-formulation, so exact-tie winners on shared edges can flip; the
-differentiable refine recomputes the winner's t, u, v either way.
+Counterpart of `simd_raytracer_tpu.ops.intersect_mxu.mt_select_fast`, jnp
+code that XLA compiles into one fusion on the TPU.  Every Moller-Trumbore
+numerator is a scalar triple product, bilinear in per-ray features (o, d,
+c = o x d) and per-triangle constants (n = e1 x e2, v0 . n, v0 x e2,
+e1 x v0); the accept tests compare numerators against |det| with no
+division, and one division per accepted pair gives the sort key.  The last
+ulps differ from the classic formulation, so exact-tie winners on shared
+edges can flip; the differentiable refine recomputes the winner's t, u, v
+either way.
 
 Rays and triangles are re-centred on the mean of v0 first: the
 factorisation is translation invariant, and centring keeps the o x d
-cancellation at scene scale wherever the scene sits.  Blocked over
-triangles like `ops/intersect.py::_pair_blocks`; computed in the dtype of
-the rays.
+cancellation at scene scale wherever the scene sits.  The per-triangle
+constants form a `FastTable`, built by `fast_table` with the same torch
+ops on the device of the triangles, once per frame through `table_of`
+(one Geometry object per frame, as `Geometry.tri_soa` is); the kernel and
+the plain version read the same table, so they share the centre's bits.
+
+`mt_select_fast` runs the kernel for CUDA tensors (float32, as the brute-
+force kernel) and the plain version, blocked over triangles like
+`ops/intersect.py::_pair_blocks` and computed in the dtype of the rays,
+for CPU tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from typing import Optional
 
 import torch
 
+from .. import kernels
 from ..models.scene import cross3
 from .intersect import BIG, _block
+from .intersect_brute import k1_split
+from .select_keys import check_eps, decode_any, decode_closest, seed_keys
+
+# Kernel launches made by mt_select_fast on CUDA tensors.
+LAUNCHES = 0
+# Tables built by fast_table (the render path builds one per frame).
+TABLES = 0
+# Rows of FastTable.soa: n (3), v0 . n, wu = v0 x e2 (3), wv = e1 x v0 (3),
+# e1 (3), e2 (3), with v0 centred.
+N, V0N, WU, WV, E1, E2 = 0, 3, 4, 7, 10, 13
+ROWS = 16
 
 
-def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
-                   tri_mask: Optional[torch.Tensor] = None,
-                   t_max: Optional[torch.Tensor] = None,
-                   any_hit: bool = False):
-    """Same contract as `ops.intersect.mt_select` -> (idx (R,) int32,
-    hit (R,) bool).  The optional window is inclusive and division-free,
-    t_num * s <= t_max * |det|; with any_hit the reduction is one `any`
-    and idx is zeros."""
-    dtype = o.dtype
-    v0, e1, e2 = (x.to(dtype) for x in (v0, e1, e2))
+@dataclasses.dataclass(frozen=True)
+class FastTable:
+    """Per-triangle constants of the fast select, from one (v0, e1, e2)."""
+
+    center: torch.Tensor     # (3,) mean of v0
+    soa: torch.Tensor        # (16, T) rows N, V0N, WU, WV, E1, E2
+    source: tuple            # the (v0, e1, e2) it was built from, detached
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a and b view the same memory as the same tensor."""
+    return (a.device == b.device and a.dtype == b.dtype
+            and a.shape == b.shape and a.stride() == b.stride()
+            and a.data_ptr() == b.data_ptr())
+
+
+def fast_table(v0, e1, e2, dtype=None) -> FastTable:
+    """The fast select's per-triangle constants, computed in `dtype`
+    (default v0's) on v0's device with the plain version's ops."""
+    global TABLES
+    src = tuple(x.detach() for x in (v0, e1, e2))
+    dtype = v0.dtype if dtype is None else dtype
+    v0, e1, e2 = (x.detach().to(dtype) for x in (v0, e1, e2))
     center = v0.mean(dim=0)
-    o = o - center[None, :]
     v0 = v0 - center[None, :]
-    c = cross3(o, d)                                   # (R, 3) once per ray
-    tm = None if t_max is None else t_max.to(dtype)[:, None]
+    n = cross3(e1, e2)
+    v0n = n[:, 0] * v0[:, 0] + n[:, 1] * v0[:, 1] + n[:, 2] * v0[:, 2]
+    soa = torch.cat([n.T, v0n[None], cross3(v0, e2).T, cross3(e1, v0).T,
+                     e1.T, e2.T], dim=0).contiguous()
+    TABLES += 1
+    return FastTable(center=center, soa=soa, source=src)
+
+
+# The last (geometry, table): the selects of one frame or train step share
+# their Geometry object, so they build one table.  A weak reference: the
+# cache keeps the geometry alive no longer than its frame.
+_last = (lambda: None, None)
+
+
+def table_of(geom) -> FastTable:
+    """fast_table of `geom`'s triangles, in float32 on a CUDA device (the
+    kernel's type) and in the geometry's dtype on the CPU, built once for
+    the Geometry object."""
+    global _last
+    g, table = _last
+    if g() is geom:
+        return table
+    table = fast_table(geom.v0, geom.e1, geom.e2,
+                       torch.float32 if geom.v0.is_cuda else None)
+    _last = (weakref.ref(geom), table)
+    return table
+
+
+def _checked_table(table, v0, e1, e2, dtype) -> FastTable:
+    """`table` when it was built from these (v0, e1, e2) in `dtype`, a new
+    table when None; raises for a table of other triangles."""
+    if table is None:
+        return fast_table(v0, e1, e2, dtype)
+    if (table.soa.dtype != dtype
+            or not all(map(_same, table.source, (v0, e1, e2)))):
+        raise ValueError("fast select: the table was built from other "
+                         "triangles or in another dtype than this call's "
+                         f"{dtype}")
+    return table
+
+
+def numerators(o, d, c, blk):
+    """(det, t_num, u_num, v_num), each (R, B): the centred rays (o, d and
+    c = o x d, each (R, 3)) against the table columns `blk` (16, B), every
+    sum left to right as csrc/fast_select.cu adds it."""
 
     def col(a, k):                                     # (R,) -> (R, 1)
         return a[:, k:k + 1]
 
+    def row(first, k):                                 # -> (1, B)
+        return blk[first + k][None, :]
+
+    det = -(col(d, 0) * row(N, 0) + col(d, 1) * row(N, 1)
+            + col(d, 2) * row(N, 2))
+    t_num = (col(o, 0) * row(N, 0) + col(o, 1) * row(N, 1)
+             + col(o, 2) * row(N, 2)) - row(V0N, 0)
+    u_num = (col(c, 0) * row(E2, 0) + col(c, 1) * row(E2, 1)
+             + col(c, 2) * row(E2, 2)
+             + col(d, 0) * row(WU, 0) + col(d, 1) * row(WU, 1)
+             + col(d, 2) * row(WU, 2))
+    v_num = (col(d, 0) * row(WV, 0) + col(d, 1) * row(WV, 1)
+             + col(d, 2) * row(WV, 2)
+             - (col(c, 0) * row(E1, 0) + col(c, 1) * row(E1, 1)
+                + col(c, 2) * row(E1, 2)))
+    return det, t_num, u_num, v_num
+
+
+def mt_select_fast_reference(o, d, v0, e1, e2, eps: float, cull: bool,
+                             tri_mask: Optional[torch.Tensor] = None,
+                             t_max: Optional[torch.Tensor] = None,
+                             any_hit: bool = False,
+                             table: Optional[FastTable] = None):
+    """Plain torch version, in the dtype of the rays -> (idx (R,) int32,
+    hit (R,) bool).  The optional window is inclusive and division-free,
+    t_num * s <= t_max * |det|; with any_hit the reduction is one `any`
+    and idx is zeros."""
+    dtype = o.dtype
+    tab = _checked_table(table, v0, e1, e2, dtype)
+    o = o - tab.center[None, :]
+    c = cross3(o, d)                                   # (R, 3) once per ray
+    tm = None if t_max is None else t_max.to(dtype)[:, None]
     r = o.shape[0]
     hit = torch.zeros(r, dtype=torch.bool, device=o.device)
     best_t = torch.full((r,), BIG, dtype=dtype, device=o.device)
     best_i = torch.zeros(r, dtype=torch.int64, device=o.device)
     step = _block(r)
     for s in range(0, v0.shape[0], step):
-        bv0, be1, be2 = v0[s:s + step], e1[s:s + step], e2[s:s + step]
-        n = cross3(be1, be2)                           # (B, 3)
-        v0n = n[:, 0] * bv0[:, 0] + n[:, 1] * bv0[:, 1] + n[:, 2] * bv0[:, 2]
-        wu = cross3(bv0, be2)                          # d-coefficient of u_num
-        wv = cross3(be1, bv0)                          # d-coefficient of v_num
-
-        def row(a, k):                                 # (B, 3) -> (1, B)
-            return a[None, :, k]
-
-        det = -(col(d, 0) * row(n, 0) + col(d, 1) * row(n, 1)
-                + col(d, 2) * row(n, 2))
-        t_num = (col(o, 0) * row(n, 0) + col(o, 1) * row(n, 1)
-                 + col(o, 2) * row(n, 2)) - v0n[None, :]
-        u_num = (col(c, 0) * row(be2, 0) + col(c, 1) * row(be2, 1)
-                 + col(c, 2) * row(be2, 2)
-                 + col(d, 0) * row(wu, 0) + col(d, 1) * row(wu, 1)
-                 + col(d, 2) * row(wu, 2))
-        v_num = (col(d, 0) * row(wv, 0) + col(d, 1) * row(wv, 1)
-                 + col(d, 2) * row(wv, 2)
-                 - (col(c, 0) * row(be1, 0) + col(c, 1) * row(be1, 1)
-                    + col(c, 2) * row(be1, 2)))
-
+        det, t_num, u_num, v_num = numerators(o, d, c, tab.soa[:, s:s + step])
         sgn = torch.where(det >= 0.0, 1.0, -1.0).to(dtype)
         adet = det * sgn
         ok = det > eps if cull else adet > eps
@@ -99,3 +187,54 @@ def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
     if any_hit:
         return torch.zeros(r, dtype=torch.int32, device=o.device), hit
     return best_i.to(torch.int32), best_t < BIG
+
+
+def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
+                   tri_mask: Optional[torch.Tensor] = None,
+                   t_max: Optional[torch.Tensor] = None,
+                   any_hit: bool = False,
+                   table: Optional[FastTable] = None):
+    """The fast select under the contract of `ops.intersect.mt_select` ->
+    (idx (R,) int32, hit (R,) bool): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  table: `fast_table(v0, e1, e2)` where
+    the caller holds it (`table_of(geom)`), built here otherwise.  eps
+    must be >= 0 on every device (the key merge needs t >= 0)."""
+    check_eps(eps)
+    if not o.is_cuda:
+        return mt_select_fast_reference(o, d, v0, e1, e2, eps, cull,
+                                        tri_mask, t_max, any_hit, table)
+    global LAUNCHES
+    r, t = o.shape[0], v0.shape[0]
+    for name, x, rows in (("o", o, r), ("d", d, r), ("v0", v0, t),
+                          ("e1", e1, t), ("e2", e2, t)):
+        if x.device != o.device or x.shape != (rows, 3):
+            raise ValueError(f"{name}: expected ({rows}, 3) on {o.device}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+    tab = _checked_table(table, v0, e1, e2, torch.float32)
+    o32 = o.float().contiguous()
+    d32 = d.float().contiguous()
+    mask = (torch.ones(t, dtype=torch.int32, device=o.device)
+            if tri_mask is None else
+            tri_mask.to(device=o.device, dtype=torch.int32).contiguous())
+    tmax = (None if t_max is None else
+            t_max.to(device=o.device, dtype=torch.float32).contiguous())
+    if mask.shape != (t,) or (tmax is not None and tmax.shape != (r,)):
+        raise ValueError(f"tri_mask {tuple(mask.shape)} / t_max "
+                         f"{None if tmax is None else tuple(tmax.shape)} do "
+                         f"not match T={t}, R={r}")
+    keys = seed_keys(torch.full((r,), BIG, dtype=torch.float32,
+                                device=o.device))
+    if r:
+        rc = kernels.library().srt_fast_select(
+            o32.data_ptr(), d32.data_ptr(), tab.center.data_ptr(),
+            None if tmax is None else tmax.data_ptr(), tab.soa.data_ptr(),
+            mask.data_ptr(), r, t,
+            k1_split(r, t, kernels.sm_count(o.device.index or 0)),
+            float(eps), int(bool(cull)), int(bool(any_hit)),
+            int(tmax is not None), keys.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+        kernels.check(rc, "fast_select")
+        LAUNCHES += 1
+    if any_hit:
+        return decode_any(keys)
+    return decode_closest(keys)

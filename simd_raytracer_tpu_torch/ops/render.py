@@ -25,7 +25,7 @@ import torch
 from ..config import RenderConfig
 from ..models.camera import primary_rays
 from ..models.scene import Geometry, Scene, derive_geometry
-from .intersect import make_select_fn, trace
+from .intersect import trace
 from .select_keys import check_eps
 from .shade import shade
 
@@ -79,12 +79,9 @@ def resolve_device(device) -> torch.device:
 
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for configurations not ported yet, and
-    ValueError for a negative epsilon (the selects' key merge needs t >= 0)
-    on every device."""
+    """Raise ValueError for a negative epsilon (the selects' key merge
+    needs t >= 0) on every device."""
     check_eps(cfg.epsilon)
-    if cfg.intersector not in ("sweep", "kdtree"):
-        make_select_fn(cfg.intersector)   # raises for the unported ones
 
 
 def _scatter_rows(n: int, idx: torch.Tensor, vals: torch.Tensor,

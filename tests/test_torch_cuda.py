@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA device: each hand-written kernel against its plain
 torch version on the same CUDA tensors, and small renders, gradients and
-march occlusion on CUDA against the same on the CPU.
+march occlusion on CUDA against the same on the CPU (the mxu select, a
+torch.matmul, against the CPU too).
 
 Every test carries the `cuda` marker and skips without a card.  On a GPU
 machine, from the repository root:
@@ -21,7 +22,8 @@ from simd_raytracer_tpu_torch.accel.build import build_kdtree_for_scene
 from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
 from simd_raytracer_tpu_torch.accel.traverse import kd_select, kd_work_pairs
 from simd_raytracer_tpu_torch.ops import grad as G
-from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_kd,
+from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
+                                          intersect_kd, intersect_mxu,
                                           intersect_sweep)
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
 from simd_raytracer_tpu_torch.ops.shade import occluded
@@ -263,6 +265,19 @@ def test_wrappers_reject_bad_input(scene):
     args[3] = args[3].double()
     with pytest.raises(ValueError):
         intersect_sweep.sweep_select(*args, EPS, True, False)
+    fast = intersect_fast.mt_select_fast
+    with pytest.raises(ValueError, match="eps"):
+        fast(o, d, g.v0, g.e1, g.e2, -EPS, True)
+    with pytest.raises(ValueError, match="eps"):
+        make_select_fn("fast", geom=g)(o, d, g.v0, g.e1, g.e2, -EPS, True,
+                                       any_hit=True)
+    with pytest.raises(ValueError):
+        fast(o, d[:10], g.v0, g.e1, g.e2, EPS, True)
+    with pytest.raises(ValueError):
+        fast(o, d, g.v0, g.e1, g.e2, EPS, True, t_max=o[:10, 0])
+    with pytest.raises(ValueError, match="table"):
+        fast(o, d, g.v0.clone(), g.e1, g.e2, EPS, True,
+             table=intersect_fast.table_of(g))
 
 
 def test_gradients_on_cuda_match_cpu(scene):
@@ -297,7 +312,7 @@ def test_gradients_on_cuda_match_cpu(scene):
                 <= 1e-3 * float(c.abs().max()) + 1e-6 + 2 * f32_err), k
 
 
-@pytest.mark.parametrize("intersector", ["jnp", "sweep", "fast"])
+@pytest.mark.parametrize("intersector", ["jnp", "sweep", "fast", "mxu"])
 def test_march_on_cuda_matches_cpu(scene, intersector):
     s, g, sweep = scene
     rng = np.random.default_rng(5)
@@ -523,3 +538,142 @@ def test_cuda_renders_are_bitwise_reproducible(scene, intersector):
     a = T.render_frame(s, cfg, device=DEV)
     b = T.render_frame(s, cfg, device=DEV)
     assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+# ---- the fast select kernel and the mxu select -----------------------------
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_fast_kernel_matches_plain(scene, cull, masked, windowed, any_hit):
+    """The render path's select (bound to the geometry's table) against
+    the plain version on the same table, and against the kernel with a
+    table built on the call: equal bit for bit."""
+    s, g, _ = scene
+    o, d, tmax = rays(s.cam_pos, 3000, seed=21)
+    mask = g.tri_valid & ~g.tri_transmissive if masked else g.tri_valid
+    args = (o, d, g.v0, g.e1, g.e2, EPS, cull, mask,
+            tmax if windowed else None, any_hit)
+    select = make_select_fn("fast", geom=g)
+    assert select.keywords["table"].soa.dtype == torch.float32
+    before = intersect_fast.LAUNCHES
+    got = select(*args)
+    assert intersect_fast.LAUNCHES == before + 1
+    assert_equal(got, intersect_fast.mt_select_fast_reference(
+        *args, table=intersect_fast.table_of(g)))
+    assert_equal(intersect_fast.mt_select_fast(*args), got)
+    assert 0 < int(got[1].sum()) < len(o)
+
+
+@pytest.mark.parametrize("n_rays,n_tris", [(1001, None), (0, None),
+                                           (700, 100), (2500, 1283)],
+                         ids=["1001-rays", "0-rays", "100-tris", "1283-tris"])
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_fast_kernel_odd_shapes_match_plain(scene, n_rays, n_tris, windowed,
+                                            any_hit):
+    """Ray counts that leave a partial last block (or none at all), fewer
+    triangles than one 256-triangle tile, and a triangle count that is not
+    a multiple of the tile, split over several blocks per 128 rays."""
+    s, g, _ = scene
+    o, d, tmax = incoherent(s.cam_pos, max(n_rays, 1), 30 + n_rays, windowed)
+    o, d = o[:n_rays], d[:n_rays]
+    tmax = None if tmax is None else tmax[:n_rays]
+    v0, e1, e2, mask = g.v0, g.e1, g.e2, g.tri_valid
+    if n_tris is not None:
+        n_valid = int(g.tri_valid.sum())
+        pick = (torch.arange(n_tris, device=DEV) * max(1, n_valid // n_tris)
+                % n_valid)
+        v0, e1, e2 = g.v0[pick], g.e1[pick], g.e2[pick]
+        mask = torch.arange(n_tris, device=DEV) % 7 != 3
+    args = (o, d, v0, e1, e2, EPS, False, mask, tmax, any_hit)
+    before = intersect_fast.LAUNCHES
+    got = intersect_fast.mt_select_fast(*args)
+    assert intersect_fast.LAUNCHES == before + (n_rays > 0)
+    assert got[0].shape == (n_rays,)
+    assert_equal(got, intersect_fast.mt_select_fast_reference(*args))
+    if n_rays:
+        assert 0 < int(got[1].sum()) < n_rays
+
+
+def test_fast_kernel_near_tie_grid_matches_plain():
+    """The flat grid with shared edges and vertices of tests/
+    test_torch_kdtree.py::test_kd_select_near_tie_on_shared_edges: rays
+    aimed exactly at grid points and diagonals, where several triangles
+    accept at one t; the lowest index must win in the kernel as in the
+    plain version, with and without a window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    doc, verts, tris = grid_doc()
+    s = T.parse_scene_dict(doc).to(DEV)
+    g = T.derive_geometry(s)
+    targets = np.concatenate([verts, 0.5 * (verts[tris[:, 0]]
+                                            + verts[tris[:, 2]])])
+    rng = np.random.default_rng(2)
+    o = rng.normal(scale=0.3, size=(len(targets), 3)).astype(np.float32)
+    o[:, 2] = 0.0
+    d = (targets - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o).to(DEV), torch.from_numpy(d).to(DEV)
+    tmax = torch.full((len(o),), 50.0, device=DEV)
+    for cull in (True, False):
+        for t_max in (None, tmax):
+            args = (o, d, g.v0, g.e1, g.e2, EPS, cull, g.tri_valid, t_max)
+            got = intersect_fast.mt_select_fast(*args)
+            assert_equal(got, intersect_fast.mt_select_fast_reference(*args))
+            assert int(got[1].sum()) > 150
+
+
+@pytest.mark.parametrize("intersector", ["fast", "mxu"])
+def test_fast_and_mxu_renders_on_cuda_match_cpu(scene, intersector):
+    """The reference-exact estimator (split + march) under fast and mxu:
+    fast within 1e-4 of the CPU (the table's centre is a mean, summed in
+    another order on each device); mxu to the JAX package's own bar for it
+    (2e-3 * max(1, |a|) on more than 99% of values: cuBLAS and the CPU's
+    BLAS sum the ten products in another order)."""
+    s, _, _ = scene
+    cfg = T.RenderConfig(max_ray_depth=3, chunk_size=1024,
+                         occlusion_mode="march", intersector=intersector)
+    uniforms = lambda c: SeededUniforms(6, c)   # noqa: E731
+    before = intersect_fast.LAUNCHES
+    gpu = T.render_frame(s, cfg, device=DEV, uniforms=uniforms)
+    assert (intersect_fast.LAUNCHES > before) == (intersector == "fast")
+    cpu = T.render_frame(s, cfg, device="cpu", uniforms=uniforms)
+    assert gpu.is_cuda and torch.isfinite(gpu).all()
+    if intersector == "fast":
+        torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4)
+    else:
+        a, b = cpu.numpy(), gpu.cpu().numpy()
+        assert (np.abs(a - b) <= 2e-3 * np.maximum(1.0, np.abs(a))
+                ).mean() > 0.99
+
+
+def test_mxu_on_cuda_ignores_tf32(scene):
+    """With TF32 switched on globally the mxu select's winners do not
+    change (its product runs in full float32) and the setting survives
+    the call; against the CPU, JAX's bar (hit flags and winners agree on
+    more than 99.9% of rays)."""
+    s, g, _ = scene
+    o, d, tmax = rays(s.cam_pos, 3000, seed=23)
+    prev = torch.get_float32_matmul_precision()
+    for any_hit in (False, True):
+        args = (o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, tmax,
+                any_hit)
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            strict = intersect_mxu.mt_select_mxu(*args)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            loose = intersect_mxu.mt_select_mxu(*args)
+            assert torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        assert_equal(loose, strict)
+        cpu = intersect_mxu.mt_select_mxu(
+            *(a.cpu() if torch.is_tensor(a) else a for a in args))
+        hit, chit = strict[1].cpu(), cpu[1]
+        assert float((hit == chit).float().mean()) > 0.999
+        both = hit & chit
+        assert float((strict[0].cpu()[both] == cpu[0][both]).float().mean()
+                     ) > 0.999
+        assert 0 < int(hit.sum()) < len(o)

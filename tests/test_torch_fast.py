@@ -1,0 +1,204 @@
+"""PyTorch port: the fast select's table of per-triangle constants and its
+wrapper on the CPU.
+
+The table-fed plain version must give, bit for bit, what the fast select
+gave before it had a table (`_fast_untabled`, the plain version as it was,
+kept here as the reference); tests/test_torch_march.py holds it against
+JAX.  The CUDA kernel is held against the plain version on the card in
+tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import simd_raytracer_tpu_torch as T
+from simd_raytracer_tpu_torch import kernels
+from simd_raytracer_tpu_torch.models.scene import cross3
+from simd_raytracer_tpu_torch.ops import intersect_fast as F
+from simd_raytracer_tpu_torch.ops.intersect import BIG, _block, make_select_fn
+from test_torch_select import CASES, rays
+from torch_scenes import mixed_doc
+
+torch.set_num_threads(2)
+
+EPS = 1e-6
+
+
+@pytest.fixture(scope="module")
+def scene():
+    s = T.parse_scene_dict(mixed_doc(16, 16, g=8, subdiv=2))
+    return s, T.derive_geometry(s)
+
+
+def _fast_untabled(o, d, v0, e1, e2, eps, cull, tri_mask=None, t_max=None,
+                   any_hit=False):
+    """The plain fast select before the table: every constant computed per
+    triangle block from (v0, e1, e2)."""
+    dtype = o.dtype
+    v0, e1, e2 = (x.to(dtype) for x in (v0, e1, e2))
+    center = v0.mean(dim=0)
+    o = o - center[None, :]
+    v0 = v0 - center[None, :]
+    c = cross3(o, d)
+    tm = None if t_max is None else t_max.to(dtype)[:, None]
+
+    def col(a, k):
+        return a[:, k:k + 1]
+
+    r = o.shape[0]
+    hit = torch.zeros(r, dtype=torch.bool)
+    best_t = torch.full((r,), BIG, dtype=dtype)
+    best_i = torch.zeros(r, dtype=torch.int64)
+    step = _block(r)
+    for s in range(0, v0.shape[0], step):
+        bv0, be1, be2 = v0[s:s + step], e1[s:s + step], e2[s:s + step]
+        n = cross3(be1, be2)
+        v0n = n[:, 0] * bv0[:, 0] + n[:, 1] * bv0[:, 1] + n[:, 2] * bv0[:, 2]
+        wu = cross3(bv0, be2)
+        wv = cross3(be1, bv0)
+
+        def row(a, k):
+            return a[None, :, k]
+
+        det = -(col(d, 0) * row(n, 0) + col(d, 1) * row(n, 1)
+                + col(d, 2) * row(n, 2))
+        t_num = (col(o, 0) * row(n, 0) + col(o, 1) * row(n, 1)
+                 + col(o, 2) * row(n, 2)) - v0n[None, :]
+        u_num = (col(c, 0) * row(be2, 0) + col(c, 1) * row(be2, 1)
+                 + col(c, 2) * row(be2, 2)
+                 + col(d, 0) * row(wu, 0) + col(d, 1) * row(wu, 1)
+                 + col(d, 2) * row(wu, 2))
+        v_num = (col(d, 0) * row(wv, 0) + col(d, 1) * row(wv, 1)
+                 + col(d, 2) * row(wv, 2)
+                 - (col(c, 0) * row(be1, 0) + col(c, 1) * row(be1, 1)
+                    + col(c, 2) * row(be1, 2)))
+        sgn = torch.where(det >= 0.0, 1.0, -1.0).to(dtype)
+        adet = det * sgn
+        ok = det > eps if cull else adet > eps
+        us, vs = u_num * sgn, v_num * sgn
+        ok = ok & (us >= 0.0) & (us <= adet)
+        ok = ok & (vs >= 0.0) & (us + vs <= adet)
+        ok = ok & (t_num * sgn > eps * adet)
+        if tri_mask is not None:
+            ok = ok & tri_mask[None, s:s + step]
+        if tm is not None:
+            ok = ok & (t_num * sgn <= tm * adet)
+        if any_hit:
+            hit = hit | ok.any(dim=1)
+            continue
+        t_m = torch.where(ok, t_num / torch.where(ok, det, 1.0), BIG)
+        blk_i = t_m.argmin(dim=1)
+        blk_t = t_m.gather(1, blk_i[:, None])[:, 0]
+        upd = blk_t < best_t
+        best_t = torch.where(upd, blk_t, best_t)
+        best_i = torch.where(upd, blk_i + s, best_i)
+    if any_hit:
+        return torch.zeros(r, dtype=torch.int32), hit
+    return best_i.to(torch.int32), best_t < BIG
+
+
+@pytest.mark.parametrize("cull,masked,windowed,any_hit", CASES)
+def test_table_fed_select_equals_the_untabled_one(scene, cull, masked,
+                                                  windowed, any_hit):
+    """Bitwise, through the per-frame table of make_select_fn("fast")
+    (float32), and in float64 with a table built on the call."""
+    s, g = scene
+    o, d, tmax = (torch.from_numpy(x) for x in rays(s.cam_pos, seed=5))
+    mask = g.tri_valid & ~g.tri_transmissive if masked else None
+    tm = tmax if windowed else None
+    select = make_select_fn("fast", geom=g)
+    got = select(o, d, g.v0, g.e1, g.e2, EPS, cull, mask, tm, any_hit)
+    ref = _fast_untabled(o, d, g.v0, g.e1, g.e2, EPS, cull, mask, tm, any_hit)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert 0 < int(got[1].sum()) < len(o)
+    o64, d64, g64 = o.double(), d.double(), g.map(
+        lambda t: t.double() if t.is_floating_point() else t)
+    got = F.mt_select_fast(o64, d64, g64.v0, g64.e1, g64.e2, EPS, cull, mask,
+                           None if tm is None else tm.double(), any_hit)
+    ref = _fast_untabled(o64, d64, g64.v0, g64.e1, g64.e2, EPS, cull, mask,
+                         None if tm is None else tm.double(), any_hit)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_table_is_built_once_from_the_geometry(scene):
+    """make_select_fn("fast", geom=g) binds table_of(g): built once for the
+    Geometry object, from g's own (v0, e1, e2), in g's dtype on the CPU;
+    a frame builds one table for all of its selects."""
+    s, g = scene
+    before = F.TABLES
+    a = make_select_fn("fast", geom=g).keywords["table"]
+    b = make_select_fn("fast", geom=g).keywords["table"]
+    assert a is b and F.TABLES <= before + 1
+    assert a.soa.shape == (F.ROWS, g.v0.shape[0])
+    assert a.soa.dtype == g.v0.dtype
+    for src, x in zip(a.source, (g.v0, g.e1, g.e2)):
+        assert src.data_ptr() == x.data_ptr() and src.shape == x.shape
+    ref = F.fast_table(g.v0, g.e1, g.e2)
+    assert torch.equal(a.center, g.v0.mean(dim=0))
+    assert torch.equal(a.soa, ref.soa)
+    v0c = g.v0 - a.center
+    assert torch.equal(a.soa[F.N:F.N + 3], cross3(g.e1, g.e2).T)
+    assert torch.equal(a.soa[F.WU:F.WU + 3], cross3(v0c, g.e2).T)
+    assert torch.equal(a.soa[F.WV:F.WV + 3], cross3(g.e1, v0c).T)
+    assert torch.equal(a.soa[F.E1:F.E1 + 3], g.e1.T)
+    assert torch.equal(a.soa[F.E2:F.E2 + 3], g.e2.T)
+
+    before = F.TABLES
+    T.render_frame(s.replace(height=8, width=8),
+                   T.RenderConfig(max_ray_depth=3, occlusion_mode="march",
+                                  intersector="fast"), device="cpu")
+    assert F.TABLES == before + 1
+
+
+def test_table_of_other_triangles_is_refused(scene):
+    s, g = scene
+    o, d, _ = (torch.from_numpy(x) for x in rays(s.cam_pos, n=64, seed=6))
+    table = F.table_of(g)
+    other = g.v0.clone()
+    with pytest.raises(ValueError, match="table"):
+        F.mt_select_fast(o, d, other, g.e1, g.e2, EPS, True, table=table)
+    with pytest.raises(ValueError, match="table"):
+        F.mt_select_fast(o.double(), d.double(), g.v0, g.e1, g.e2, EPS, True,
+                         table=table)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cpu_select_never_touches_the_kernel(scene, monkeypatch, any_hit):
+    s, g = scene
+    o, d, tmax = (torch.from_numpy(x) for x in rays(s.cam_pos, n=256, seed=7))
+
+    def no_library():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    before = F.LAUNCHES
+    got = make_select_fn("fast", geom=g)(o, d, g.v0, g.e1, g.e2, EPS, False,
+                                         g.tri_valid, tmax, any_hit)
+    assert F.LAUNCHES == before
+    assert torch.equal(got[1], F.mt_select_fast_reference(
+        o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, tmax, any_hit)[1])
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_negative_eps_is_refused(scene, any_hit):
+    """The kernel's key merge needs t >= 0, so eps < 0 is refused on every
+    device (tests/test_torch_cuda.py holds the card)."""
+    s, g = scene
+    o, d, _ = (torch.from_numpy(x) for x in rays(s.cam_pos, n=16, seed=8))
+    with pytest.raises(ValueError, match="eps"):
+        F.mt_select_fast(o, d, g.v0, g.e1, g.e2, -EPS, True, any_hit=any_hit)
+    with pytest.raises(ValueError, match="eps"):
+        make_select_fn("fast", geom=g)(o, d, g.v0, g.e1, g.e2, -EPS, True,
+                                       any_hit=any_hit)
+
+
+def test_empty_calls(scene):
+    """No rays, and no triangles: misses of the right types."""
+    s, g = scene
+    o, d, _ = (torch.from_numpy(x) for x in rays(s.cam_pos, n=8, seed=9))
+    idx, hit = F.mt_select_fast(o[:0], d[:0], g.v0, g.e1, g.e2, EPS, True)
+    assert idx.shape == hit.shape == (0,)
+    idx, hit = F.mt_select_fast(o, d, g.v0[:0], g.e1[:0], g.e2[:0], EPS, True)
+    assert idx.dtype == torch.int32 and hit.dtype == torch.bool
+    assert not hit.any() and not idx.any()
+    assert np.isfinite(F.fast_table(g.v0, g.e1, g.e2).soa.numpy()).all()

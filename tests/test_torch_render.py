@@ -82,15 +82,6 @@ def test_cpu_render_launches_no_kernel(scenes):
     assert (intersect_brute.LAUNCHES, intersect_sweep.LAUNCHES) == before
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(intersector="mxu"), "A14"),
-])
-def test_unported_configs_raise(scenes, kw, item):
-    _, ts = scenes
-    with pytest.raises(NotImplementedError, match=item):
-        T.render_frame(ts["parsed"], T.RenderConfig(**kw), device="cpu")
-
-
 @pytest.mark.parametrize("flags,kw", [
     (["--intersector", "sweep", "--bounce-mode", "roulette", "--spp", "2"],
      dict(intersector="sweep", bounce_mode="roulette", samples_per_pixel=2)),
@@ -184,6 +175,7 @@ def test_import_pulls_in_no_jax():
             "simd_raytracer_tpu_torch.ops.render, "
             "simd_raytracer_tpu_torch.ops.grad, "
             "simd_raytracer_tpu_torch.ops.intersect_fast, "
+            "simd_raytracer_tpu_torch.ops.intersect_mxu, "
             "simd_raytracer_tpu_torch.ops.intersect_kd, "
             "simd_raytracer_tpu_torch.accel.traverse, "
             "simd_raytracer_tpu_torch.parallel.tiles, "
