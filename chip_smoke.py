@@ -92,10 +92,14 @@ Phases, one result line each:
      (graft_entry.dryrun_multichip(1)).
  18. the fast kernel on the calls of a 480x480 refexact frame (split +
      march + fast) of the full scene: its middle 16,384-ray primary chunk
-     (which hits), the largest closest-hit march call (a t_max window) and
-     the largest any-hit shadow call, each exact against the plain
-     version, timed beside K1, with its bound (each pair the call needs
-     charged FAST_STAGE_OPS for the tests it reaches, over 67 TFLOP/s);
+     (which hits), the largest closest-hit march call (a t_max window),
+     the largest any-hit shadow call over the solid triangles and the
+     largest any-hit probe over the glass ones (the march's second probe),
+     each exact against the plain version, timed beside K1 (and the
+     kernel alone by the profiler), with its bound (each pair the call
+     needs charged FAST_STAGE_OPS for the tests it reaches, over 67
+     TFLOP/s); scripts/torch_fast_ab.py times the same calls beside an
+     earlier tree's fast select;
  19. the mxu select (torch.matmul and torch ops, no kernel): a 48x48 spp 4
      render on the CPU and on CUDA (JAX's bar for mxu renders: 2e-3 *
      max(1, |a|) on more than 99% of values); the refexact frame's middle
@@ -732,6 +736,28 @@ def device_profile(run):
         k: t * 1e-9 for k, (_, t) in by_name.items()}
 
 
+def kernel_ms(fn, name, reps):
+    """The kernel's own time, without its wrapper's host work: `reps`
+    calls of `fn` under torch.profiler -> (mean device ms of the kernels
+    whose name holds `name`, how many it recorded).  The mean is over the
+    launches recorded, for the profiler can miss one (it has recorded 4
+    of 5, PERF.md section 7)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA
+          and name in e.name()]
+    if not ns:
+        raise AssertionError(f"the profiler saw no kernel named {name}")
+    return sum(ns) * 1e-6 / len(ns), len(ns)
+
+
 def sweep_calls(run):
     """One call of `run` with CUDA events around every sweep kernel call,
     summed by kind of ray: primary (culled closest hit), secondary
@@ -1173,20 +1199,27 @@ def fast_stage_pairs(args, hit) -> list:
     return n
 
 
-def fast_call(label, a, geom):
-    """Hold the fast kernel on one call exactly against its plain version
-    on the same CUDA tensors, both reading the frame's table (table_of);
-    time both and K1 on the same call.  Bound: the operations the call's
-    pairs need, each pair charged FAST_STAGE_OPS for the tests it reaches
-    (fast_stage_pairs), over 67 TFLOP/s, or the bytes the call must
-    move."""
+def fast_args(a, geom) -> dict:
+    """mt_select_fast's arguments for a captured call, reading the frame's
+    table (table_of)."""
     from simd_raytracer_tpu_torch.ops import intersect_fast as F
-    from simd_raytracer_tpu_torch.ops.intersect_brute import (k1_split,
-                                                              mt_select_brute)
-    args = dict(o=a["o"], d=a["d"], v0=geom.v0, e1=geom.e1, e2=geom.e2,
+    return dict(o=a["o"], d=a["d"], v0=geom.v0, e1=geom.e1, e2=geom.e2,
                 eps=a["eps"], cull=a["cull"], tri_mask=a["tri_mask"],
                 t_max=a["t_max"], any_hit=a["any_hit"],
                 table=F.table_of(geom))
+
+
+def fast_call(label, kind, a, geom):
+    """Hold the fast kernel on one call exactly against its plain version
+    on the same CUDA tensors, both reading the frame's table (table_of);
+    time both and K1 on the same call (the kernel also by the profiler,
+    without its wrapper's host work: kernel_ms).  Bound: the operations
+    the call's pairs need, each pair charged FAST_STAGE_OPS for the tests
+    it reaches (fast_stage_pairs), over 67 TFLOP/s, or the bytes the call
+    must move."""
+    from simd_raytracer_tpu_torch.ops import intersect_fast as F
+    from simd_raytracer_tpu_torch.ops.intersect_brute import mt_select_brute
+    args = fast_args(a, geom)
     got = F.mt_select_fast(**args)
     exact(FAST, label, got, F.mt_select_fast_reference(**args))
     r, t = args["o"].shape[0], geom.v0.shape[0]
@@ -1197,63 +1230,83 @@ def fast_call(label, a, geom):
     ms, plain_ms, runs = time_call(lambda: F.mt_select_fast(**args),
                                    lambda: F.mt_select_fast_reference(**args),
                                    5)
+    own_ms, seen = kernel_ms(lambda: F.mt_select_fast(**args),
+                             "fast_select_kernel", 5)
     k1 = {k: v for k, v in args.items() if k != "table"}
     k1_ms = event_ms(lambda: mt_select_brute(**k1, tri_soa=geom.tri_soa), 5)
     # o, d and t_max in, idx and hit out: 33 bytes a ray; the table's 16
-    # rows and the mask: 68 bytes a triangle.
-    b_ms, by = bound(ops, 33 * r + 68 * t, 1)
-    return dict(kind="march" if (args["t_max"] is not None
-                                 and not args["any_hit"])
-                else ray_kind(args["any_hit"], args["cull"]),
-                rays=r, hits=hits, triangles=t, live_triangles=live,
-                split=k1_split(r, t, torch.cuda.get_device_properties(0)
-                               .multi_processor_count),
-                ms=ms, runs_ms=runs, plain_ms=plain_ms,
+    # constants and the mask's byte: 65 bytes a triangle.
+    b_ms, by = bound(ops, 33 * r + 65 * t, 1)
+    return dict(kind=kind, rays=r, hits=hits, triangles=t,
+                live_triangles=live, width=F.FAST_WIDTH,
+                split=F.fast_split(r, t, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count),
+                ms=ms, runs_ms=runs, kernel_ms=own_ms,
+                kernel_launches_profiled=seen, plain_ms=plain_ms,
                 pairs_reaching_each_test=stages, operations=ops,
                 operations_per_pair=ops / max(stages[0], 1),
                 bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
                 k1_ms_same_call=k1_ms, exact=True)
 
 
-def phase_fast(full):
-    """The fast kernel at full width: on the calls of a 480x480 refexact
-    frame (split + march + fast) of the full scene, the largest closest-hit
-    march call (a t_max window), the largest any-hit shadow call, and its
-    middle 16,384-ray primary chunk (linear order: the image's middle rows,
-    which hit the scene); each exact against the plain version, timed
-    beside K1 with its bound."""
+# Phase 18's calls: kind of call -> (name in the result, label).
+FAST_CALLS = {"primary": ("fast primary chunk (refexact frame)",
+                          "fast primary chunk"),
+              "march": ("fast march call (refexact frame)", "fast march"),
+              "shadow": ("fast shadow (refexact frame)", "fast shadow"),
+              "glass probe": ("fast glass probe (refexact frame)",
+                              "fast glass probe")}
+
+
+def fast_calls(full):
+    """The calls of a 480x480 refexact frame (split + march + fast) of the
+    full scene that phase 18 times -> (geometry, glass triangles, {kind:
+    captured arguments}): the largest closest-hit march call (a t_max
+    window), the largest any-hit shadow call over the solid triangles, the
+    largest any-hit probe over the glass ones, and its middle 16,384-ray
+    primary chunk (linear order: the image's middle rows, which hit the
+    scene)."""
     import simd_raytracer_tpu_torch as T
     from simd_raytracer_tpu_torch.ops import intersect_fast
     from simd_raytracer_tpu_torch.ops.render import make_ray_chunks
     frame = full.replace(height=FRAME, width=FRAME)
     cfg = refexact_cfg("fast")
+    geom = T.derive_geometry(frame)
+    n_glass = int((geom.tri_valid & geom.tri_transmissive).sum())
 
     def kind_of(a):
         if a["any_hit"]:
-            return "shadow", a["o"].shape[0]
+            # The march's two probes (ops/shade.py::occluded) share their
+            # rays; the mask's live count tells the glass one.
+            glass = int(a["tri_mask"].sum()) == n_glass
+            return ("glass probe" if glass else "shadow"), a["o"].shape[0]
         return ("march" if a["t_max"] is not None
                 else ray_kind(False, a["cull"])), a["o"].shape[0]
 
     kept = capture(frame_run(frame, cfg, None), intersect_fast,
                    "mt_select_fast", kind_of)
-    geom = T.derive_geometry(frame)
     chunk = make_ray_chunks(frame, cfg).shape[0] // 2
     o, d = camera_rays(frame, cfg, chunk)
-    primary = dict(o=o, d=d, eps=EPS, cull=True, tri_mask=geom.tri_valid,
-                   t_max=None, any_hit=False)
-    calls = {
-        "fast primary chunk (refexact frame)": fast_call(
-            "fast primary chunk", primary, geom),
-        "fast march call (refexact frame)": fast_call(
-            "fast march", kept["march"], geom),
-        "fast shadow (refexact frame)": fast_call(
-            "fast shadow", kept["shadow"], geom),
-    }
+    kept["primary"] = dict(o=o, d=d, eps=EPS, cull=True,
+                           tri_mask=geom.tri_valid, t_max=None,
+                           any_hit=False)
+    return geom, n_glass, kept
+
+
+def phase_fast(full):
+    """The fast kernel at full width on fast_calls' calls, each exact
+    against the plain version, timed beside K1 with its bound."""
+    geom, n_glass, kept = fast_calls(full)
+    calls = {name: fast_call(label, kind, kept[kind], geom)
+             for kind, (name, label) in FAST_CALLS.items()}
     torch.cuda.synchronize()
-    if calls["fast primary chunk (refexact frame)"]["hits"] < len(o) // 2:
+    if (calls["fast primary chunk (refexact frame)"]["hits"]
+            < kept["primary"]["o"].shape[0] // 2):
         raise AssertionError("the fast primary chunk misses the scene")
+    if calls["fast glass probe (refexact frame)"]["live_triangles"] != n_glass:
+        raise AssertionError("the glass probe was not captured")
     report("18 fast kernel on the refexact calls",
-           triangles=int(geom.tri_valid.sum()),
+           triangles=int(geom.tri_valid.sum()), glass_triangles=n_glass,
            calls_seen={k: int(v["o"].shape[0]) for k, v in kept.items()},
            ops_per_test=FAST_STAGE_OPS, calls=calls, exact=True)
     return calls

@@ -1,7 +1,7 @@
 // Shared pieces of the select kernels (mt_select.cu, sweep_select.cu,
-// kd_select.cu; fast_select.cu takes the keys only): the Moller-Trumbore
-// pair tests, the packed (t, id) merge key and the cp.async staging
-// helpers.  One copy of the arithmetic, so the kernels' winners cannot
+// kd_select.cu; fast_select.cu takes the keys and the staging helpers):
+// the Moller-Trumbore pair tests, the packed (t, id) merge key and the
+// cp.async staging helpers.  One copy of the arithmetic, so the kernels' winners cannot
 // drift apart.
 //
 // Every arithmetic step is one IEEE operation in the order of the plain

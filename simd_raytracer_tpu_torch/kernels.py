@@ -123,9 +123,9 @@ def _bind(path: str) -> ctypes.CDLL:
     # n_rays, rays_per_block, lanes | eps, cull | idx, hit, counter, stream
     lib.srt_kd_select.argtypes = [p] * 9 + [i] * 3 + [f, i] + [p] * 4
     lib.srt_kd_select.restype = i
-    # o, d, center, tmax, table, mask | n_rays, n_tris, split | eps, cull,
-    # any_hit, windowed | keys, stream
-    lib.srt_fast_select.argtypes = [p] * 6 + [i] * 3 + [f, i, i, i] + [p, p]
+    # o, d, center, tmax, pack, mask | n_rays, n_tris, split | eps, cull,
+    # any_hit | keys, stream
+    lib.srt_fast_select.argtypes = [p] * 6 + [i] * 3 + [f, i, i] + [p, p]
     lib.srt_fast_select.restype = i
     return lib
 

@@ -32,13 +32,16 @@ RAY_BLOCK = 128
 TRI_TILE = 256
 
 
-def k1_split(n_rays: int, n_tris: int, n_sms: int) -> int:
-    """Blocks per 128 rays, each taking a share of the triangle tiles, for
-    a call of n_rays x n_tris on a card with n_sms SMs: enough for
-    kernels.BLOCKS_PER_SM blocks on every SM, 1 when the ray blocks alone
-    do that, never more than there are tiles."""
-    ray_blocks = max(1, -(-n_rays // RAY_BLOCK))
-    tiles = max(1, -(-n_tris // TRI_TILE))
+def k1_split(n_rays: int, n_tris: int, n_sms: int, ray_block: int = RAY_BLOCK,
+             tile: int = TRI_TILE) -> int:
+    """Blocks per `ray_block` rays, each taking a share of the triangle
+    tiles of `tile` triangles, for a call of n_rays x n_tris on a card with
+    n_sms SMs: enough for kernels.BLOCKS_PER_SM blocks on every SM, 1 when
+    the ray blocks alone do that, never more than there are tiles.  The
+    defaults are K1's widths (ops/intersect_fast.py::fast_split passes the
+    fast kernel's)."""
+    ray_blocks = max(1, -(-n_rays // ray_block))
+    tiles = max(1, -(-n_tris // tile))
     want = -(-kernels.BLOCKS_PER_SM * n_sms // ray_blocks)
     return max(1, min(want, tiles, 65535))
 

@@ -18,6 +18,10 @@ constants form a `FastTable`, built by `fast_table` with the same torch
 ops on the device of the triangles, once per frame through `table_of`
 (one Geometry object per frame, as `Geometry.tri_soa` is); the kernel and
 the plain version read the same table, so they share the centre's bits.
+The table is one (T padded to FAST_TILE, 16) array, a triangle's 16
+constants in a row in the order the kernel's tests use them, so that the
+kernel reads a row as four 16-byte words; the plain version reads its
+columns.
 
 `mt_select_fast` runs the kernel for CUDA tensors (float32, as the brute-
 force kernel) and the plain version, blocked over triangles like
@@ -43,10 +47,19 @@ from .select_keys import check_eps, decode_any, decode_closest, seed_keys
 LAUNCHES = 0
 # Tables built by fast_table (the render path builds one per frame).
 TABLES = 0
-# Rows of FastTable.soa: n (3), v0 . n, wu = v0 x e2 (3), wv = e1 x v0 (3),
-# e1 (3), e2 (3), with v0 centred.
-N, V0N, WU, WV, E1, E2 = 0, 3, 4, 7, 10, 13
+# Columns of FastTable.pack (rows of FastTable.soa), in the order the
+# kernel's tests read them as four float4 words: n (3) and v0 . n (the cull
+# test; the t test), e2 (3) and wu = v0 x e2 (3) (the u test), wv = e1 x v0
+# (3) and e1 (3) (the v test), with v0 centred.
+N, V0N, E2, WU, WV, E1 = 0, 3, 4, 7, 10, 13
 ROWS = 16
+# The kernel's shape (csrc/fast_select.cu's kThreads, kWidth, kTile):
+# FAST_THREADS threads a block, each holding FAST_WIDTH rays, and FAST_TILE
+# triangles staged per step; the table is padded to a whole number of
+# tiles.
+FAST_THREADS = 128
+FAST_WIDTH = 3
+FAST_TILE = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +67,13 @@ class FastTable:
     """Per-triangle constants of the fast select, from one (v0, e1, e2)."""
 
     center: torch.Tensor     # (3,) mean of v0
-    soa: torch.Tensor        # (16, T) rows N, V0N, WU, WV, E1, E2
+    pack: torch.Tensor       # (T padded to FAST_TILE, 16), zero padding
     source: tuple            # the (v0, e1, e2) it was built from, detached
+
+    @property
+    def soa(self) -> torch.Tensor:
+        """(16, T) view of pack: row k is constant k of every triangle."""
+        return self.pack[:self.source[0].shape[0]].T
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -76,10 +94,13 @@ def fast_table(v0, e1, e2, dtype=None) -> FastTable:
     v0 = v0 - center[None, :]
     n = cross3(e1, e2)
     v0n = n[:, 0] * v0[:, 0] + n[:, 1] * v0[:, 1] + n[:, 2] * v0[:, 2]
-    soa = torch.cat([n.T, v0n[None], cross3(v0, e2).T, cross3(e1, v0).T,
-                     e1.T, e2.T], dim=0).contiguous()
+    t = v0.shape[0]
+    pack = torch.zeros((-(-t // FAST_TILE) * FAST_TILE, ROWS), dtype=dtype,
+                       device=v0.device)
+    pack[:t] = torch.cat([n, v0n[:, None], e2, cross3(v0, e2),
+                          cross3(e1, v0), e1], dim=1)
     TABLES += 1
-    return FastTable(center=center, soa=soa, source=src)
+    return FastTable(center=center, pack=pack, source=src)
 
 
 # The last (geometry, table): the selects of one frame or train step share
@@ -107,7 +128,7 @@ def _checked_table(table, v0, e1, e2, dtype) -> FastTable:
     table when None; raises for a table of other triangles."""
     if table is None:
         return fast_table(v0, e1, e2, dtype)
-    if (table.soa.dtype != dtype
+    if (table.pack.dtype != dtype
             or not all(map(_same, table.source, (v0, e1, e2)))):
         raise ValueError("fast select: the table was built from other "
                          "triangles or in another dtype than this call's "
@@ -117,8 +138,9 @@ def _checked_table(table, v0, e1, e2, dtype) -> FastTable:
 
 def numerators(o, d, c, blk):
     """(det, t_num, u_num, v_num), each (R, B): the centred rays (o, d and
-    c = o x d, each (R, 3)) against the table columns `blk` (16, B), every
-    sum left to right as csrc/fast_select.cu adds it."""
+    c = o x d, each (R, 3)) against the table columns `blk` (16, B; a slice
+    of FastTable.soa), every sum left to right as csrc/fast_select.cu adds
+    it."""
 
     def col(a, k):                                     # (R,) -> (R, 1)
         return a[:, k:k + 1]
@@ -189,6 +211,17 @@ def mt_select_fast_reference(o, d, v0, e1, e2, eps: float, cull: bool,
     return best_i.to(torch.int32), best_t < BIG
 
 
+def fast_split(n_rays: int, n_tris: int, n_sms: int) -> int:
+    """The fast kernel's blocks per FAST_THREADS * FAST_WIDTH rays, each
+    taking an even share of the FAST_TILE-triangle tiles: k1_split's rule
+    over the fast kernel's widths, so a small call (a march hop) still
+    fills the card through the triangle split, down to one tile a block
+    (blocks of at least two or four tiles made the march call's kernel
+    19% and 81% slower, PERF.md)."""
+    return k1_split(n_rays, n_tris, n_sms, FAST_THREADS * FAST_WIDTH,
+                    FAST_TILE)
+
+
 def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
                    tri_mask: Optional[torch.Tensor] = None,
                    t_max: Optional[torch.Tensor] = None,
@@ -211,27 +244,29 @@ def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
             raise ValueError(f"{name}: expected ({rows}, 3) on {o.device}, "
                              f"got {tuple(x.shape)} on {x.device}")
     tab = _checked_table(table, v0, e1, e2, torch.float32)
+    if tab.pack.data_ptr() % 16 or not tab.pack.is_contiguous():
+        raise ValueError("fast select: the table must be contiguous and "
+                         "16-byte aligned (the kernel copies float4 words)")
     o32 = o.float().contiguous()
     d32 = d.float().contiguous()
-    mask = (torch.ones(t, dtype=torch.int32, device=o.device)
-            if tri_mask is None else
-            tri_mask.to(device=o.device, dtype=torch.int32).contiguous())
+    # A bool mask is read in place, one byte a triangle; None: all live.
+    mask = (None if tri_mask is None else
+            tri_mask.to(device=o.device, dtype=torch.bool).contiguous())
     tmax = (None if t_max is None else
             t_max.to(device=o.device, dtype=torch.float32).contiguous())
-    if mask.shape != (t,) or (tmax is not None and tmax.shape != (r,)):
-        raise ValueError(f"tri_mask {tuple(mask.shape)} / t_max "
-                         f"{None if tmax is None else tuple(tmax.shape)} do "
-                         f"not match T={t}, R={r}")
+    shapes = [None if x is None else tuple(x.shape) for x in (mask, tmax)]
+    if shapes[0] not in (None, (t,)) or shapes[1] not in (None, (r,)):
+        raise ValueError(f"tri_mask {shapes[0]} / t_max {shapes[1]} do not "
+                         f"match T={t}, R={r}")
     keys = seed_keys(torch.full((r,), BIG, dtype=torch.float32,
                                 device=o.device))
     if r:
         rc = kernels.library().srt_fast_select(
             o32.data_ptr(), d32.data_ptr(), tab.center.data_ptr(),
-            None if tmax is None else tmax.data_ptr(), tab.soa.data_ptr(),
-            mask.data_ptr(), r, t,
-            k1_split(r, t, kernels.sm_count(o.device.index or 0)),
-            float(eps), int(bool(cull)), int(bool(any_hit)),
-            int(tmax is not None), keys.data_ptr(),
+            None if tmax is None else tmax.data_ptr(), tab.pack.data_ptr(),
+            None if mask is None else mask.data_ptr(), r, t,
+            fast_split(r, t, kernels.sm_count(o.device.index or 0)),
+            float(eps), int(bool(cull)), int(bool(any_hit)), keys.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
         kernels.check(rc, "fast_select")
         LAUNCHES += 1

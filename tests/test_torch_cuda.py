@@ -574,8 +574,8 @@ def test_fast_kernel_matches_plain(scene, cull, masked, windowed, any_hit):
 def test_fast_kernel_odd_shapes_match_plain(scene, n_rays, n_tris, windowed,
                                             any_hit):
     """Ray counts that leave a partial last block (or none at all), fewer
-    triangles than one 256-triangle tile, and a triangle count that is not
-    a multiple of the tile, split over several blocks per 128 rays."""
+    triangles than one FAST_TILE tile, and a triangle count that is not a
+    multiple of the tile, split over several blocks per ray block."""
     s, g, _ = scene
     o, d, tmax = incoherent(s.cam_pos, max(n_rays, 1), 30 + n_rays, windowed)
     o, d = o[:n_rays], d[:n_rays]
@@ -623,6 +623,174 @@ def test_fast_kernel_near_tie_grid_matches_plain():
             got = intersect_fast.mt_select_fast(*args)
             assert_equal(got, intersect_fast.mt_select_fast_reference(*args))
             assert int(got[1].sum()) > 150
+
+
+def fast_exact(args, split_over=1):
+    """The fast kernel on `args` against the plain version, bit for bit;
+    the call's split must exceed `split_over` - 1."""
+    r, t = args[0].shape[0], args[2].shape[0]
+    assert intersect_fast.fast_split(r, t, kernels.sm_count(0)) >= split_over
+    before = intersect_fast.LAUNCHES
+    got = intersect_fast.mt_select_fast(*args)
+    assert intersect_fast.LAUNCHES == before + (r > 0)
+    assert_equal(got, intersect_fast.mt_select_fast_reference(*args))
+    return got
+
+
+@pytest.mark.parametrize("edge", ["1", "block-1", "block+1"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_fast_kernel_ray_counts_at_the_block_edge(scene, edge, any_hit):
+    """1 ray and one ray either side of a block of FAST_THREADS *
+    FAST_WIDTH rays (a thread's last rays past the call's end), windowed."""
+    s, g, _ = scene
+    block = intersect_fast.FAST_THREADS * intersect_fast.FAST_WIDTH
+    n = {"1": 1, "block-1": block - 1, "block+1": block + 1}[edge]
+    o, d, tmax = incoherent(s.cam_pos, max(n, 64), 40 + n, True)
+    args = (o[:n], d[:n], g.v0, g.e1, g.e2, EPS, False, g.tri_valid,
+            tmax[:n], any_hit)
+    got = fast_exact(args)
+    if n > 1:
+        assert 0 < int(got[1].sum()) < n
+
+
+def tie_triangles(g, n_tris, copies):
+    """n_tris of the scene's valid triangles, with the constants of its
+    largest one (which appears nowhere else) at every index of `copies`:
+    exact t ties -> (v0, e1, e2, its centroid, its unit normal)."""
+    valid = g.tri_valid.nonzero()[:, 0]
+    area = torch.linalg.cross(g.e1[valid], g.e2[valid]).norm(dim=1)
+    src = int(valid[area.argmax()])
+    pool = valid[valid != src]
+    pick = pool[torch.arange(n_tris, device=DEV) % len(pool)]
+    v0, e1, e2 = (x[pick].clone() for x in (g.v0, g.e1, g.e2))
+    for i in copies:
+        v0[i], e1[i], e2[i] = g.v0[src], g.e1[src], g.e2[src]
+    n = torch.linalg.cross(g.e1[src], g.e2[src])
+    centroid = g.v0[src] + (g.e1[src] + g.e2[src]) / 3.0
+    return v0, e1, e2, centroid.cpu().numpy(), (n / n.norm()).cpu().numpy()
+
+
+def aimed_rays(centroid, normal, n, seed):
+    """n rays from points half a unit off a triangle's front face (its
+    normal's side, so culling keeps it), each aimed at its centroid."""
+    rng = np.random.default_rng(seed)
+    o = (centroid + 0.5 * normal
+         + rng.normal(scale=0.05, size=(n, 3))).astype(np.float32)
+    d = centroid - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o).to(DEV),
+            torch.from_numpy(d.astype(np.float32)).to(DEV))
+
+
+TILE = intersect_fast.FAST_TILE
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_fast_kernel_ties_across_compacted_tiles_and_split_blocks(
+        scene, cull, windowed):
+    """One triangle's constants repeated at the last live index of tile 0,
+    at the first live index of tile 1 (its first 40 triangles masked) and
+    in the last tile, which another block of the split takes: every ray
+    aimed at it ties exactly on the three, and the lowest index wins, in
+    the kernel as in the plain version."""
+    s, g, _ = scene
+    n_tris = 8 * TILE + 37
+    first, second, last = TILE - 1, TILE + 40, 8 * TILE + 20
+    v0, e1, e2, centroid, normal = tie_triangles(g, n_tris,
+                                                 (first, second, last))
+    mask = torch.ones(n_tris, dtype=torch.bool, device=DEV)
+    mask[TILE:second] = False
+    o, d = aimed_rays(centroid, normal, 300, 50)
+    tmax = torch.full((300,), 100.0, device=DEV) if windowed else None
+    args = (o, d, v0, e1, e2, EPS, cull, mask, tmax, False)
+    idx, hit = fast_exact(args, split_over=2)
+    assert int((hit & (idx == first)).sum()) > 250
+    assert not bool(((idx == second) | (idx == last)).any())
+
+
+@pytest.mark.parametrize("kind", ["whole-tiles", "one-live", "glass"])
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_fast_kernel_masks_that_empty_tiles(scene, kind, windowed, any_hit):
+    """Masks the compaction must honour: four whole tiles masked out; a
+    single live triangle, at the last index of a tile; the glass-only mask
+    of the march's second probe (ops/shade.py::occluded)."""
+    s, g, _ = scene
+    if kind == "glass":
+        v0, e1, e2 = g.v0, g.e1, g.e2
+        mask = g.tri_valid & g.tri_transmissive
+        o, d, tmax = incoherent(s.cam_pos, 3000, 60, windowed)
+    else:
+        n_tris = 8 * TILE
+        lone = 3 * TILE - 1
+        v0, e1, e2, centroid, normal = tie_triangles(g, n_tris, (lone,))
+        mask = torch.ones(n_tris, dtype=torch.bool, device=DEV)
+        if kind == "whole-tiles":
+            mask[2 * TILE:6 * TILE] = False
+            o, d, tmax = incoherent(s.cam_pos, 3000, 61, windowed)
+        else:
+            mask[:] = False
+            mask[lone] = True
+            o, d = aimed_rays(centroid, normal, 700, 62)
+            tmax = torch.full((700,), 100.0, device=DEV) if windowed else None
+    args = (o, d, v0, e1, e2, EPS, False, mask, tmax, any_hit)
+    idx, hit = fast_exact(args, split_over=2)
+    if kind == "one-live":
+        assert int(hit.sum()) == len(o)
+        if not any_hit:
+            assert bool((idx == lone).all())
+    else:
+        assert 0 < int(hit.sum()) < len(o)
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_fast_kernel_any_hit_over_a_split(scene, windowed):
+    """Any-hit on few rays, so the tiles spread over many blocks of the
+    split, each polling the keys other blocks decide."""
+    s, g, _ = scene
+    o, d, tmax = incoherent(s.cam_pos, 200, 63, windowed)
+    args = (o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, tmax, True)
+    _, hit = fast_exact(args, split_over=4)
+    assert 0 < int(hit.sum()) < len(o)
+
+
+def test_fast_kernel_degenerate_triangles_match_plain():
+    """Triangles whose det is +0 or -0 for every ray (zero edges, parallel
+    edges) and rays lying in a triangle's plane, beside ordinary ones: the
+    kernel's sign-bit flip on the common path and the plain version's
+    multiplication by sgn must reject and accept the same pairs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(64)
+    n = 300
+    v0 = rng.normal(size=(n, 3)).astype(np.float32)
+    v0[:, 2] -= 4.0
+    e1 = rng.normal(size=(n, 3)).astype(np.float32)
+    e2 = rng.normal(size=(n, 3)).astype(np.float32)
+    e1[0:40] = 0.0                                   # a zero edge
+    e2[40:80] = -2.0 * e1[40:80]                     # parallel edges
+    e1[80:120] = [1.0, 0.0, 0.0]                     # in the plane z = v0.z
+    e2[80:120] = [0.0, 1.0, 0.0]
+    e1[120:160] = [-1.0, 0.0, 0.0]                   # the same, flipped
+    e2[120:160] = [0.0, -1.0, 0.0]
+    o = np.zeros((2000, 3), np.float32)
+    d = rng.normal(size=(2000, 3)).astype(np.float32)
+    d[:, 2] = -np.abs(d[:, 2]) - 0.3
+    d[:500, 2] = 0.0                                 # parallel to z planes
+    o[:500, 2] = v0[80 + np.arange(500) % 80, 2]     # and in them
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tri = [torch.from_numpy(x).to(DEV) for x in (v0, e1, e2)]
+    o, d = torch.from_numpy(o).to(DEV), torch.from_numpy(d).to(DEV)
+    tmax = torch.full((len(o),), 8.0, device=DEV)
+    hits = 0
+    for cull in (True, False):
+        for t_max in (None, tmax):
+            for any_hit in (False, True):
+                got = fast_exact((o, d, *tri, EPS, cull, None, t_max,
+                                  any_hit))
+                hits += int(got[1].sum())
+    assert hits > 0
 
 
 @pytest.mark.parametrize("intersector", ["fast", "mxu"])

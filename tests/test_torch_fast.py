@@ -14,6 +14,7 @@ import torch
 import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu_torch import kernels
 from simd_raytracer_tpu_torch.models.scene import cross3
+from simd_raytracer_tpu_torch.ops import intersect_brute
 from simd_raytracer_tpu_torch.ops import intersect_fast as F
 from simd_raytracer_tpu_torch.ops.intersect import BIG, _block, make_select_fn
 from test_torch_select import CASES, rays
@@ -202,3 +203,66 @@ def test_empty_calls(scene):
     assert idx.dtype == torch.int32 and hit.dtype == torch.bool
     assert not hit.any() and not idx.any()
     assert np.isfinite(F.fast_table(g.v0, g.e1, g.e2).soa.numpy()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pack_rows_are_the_kernels_float4_words(scene, dtype):
+    """FastTable.pack holds a triangle's 16 constants in a row, in the
+    order csrc/fast_select.cu reads them as four float4 words: (n, v0 . n),
+    (e2, wu.x), (wu.y, wu.z, wv.x, wv.y), (wv.z, e1); padded with zero rows
+    to a whole number of FAST_TILE tiles; the same bits as the constants
+    computed one by one and as the (16, T) row table the select had
+    before (rows n, v0 . n, wu, wv, e1, e2)."""
+    s, g = scene
+    # The scene's triangles come padded to 128; drop 5 to leave a ragged
+    # last tile.
+    v0, e1, e2 = (x[:-5] for x in (g.v0, g.e1, g.e2))
+    tab = F.fast_table(v0, e1, e2, dtype)
+    v0, e1, e2 = (x.to(dtype) for x in (v0, e1, e2))
+    t = v0.shape[0]
+    pad = -(-t // F.FAST_TILE) * F.FAST_TILE
+    assert tab.pack.shape == (pad, F.ROWS) and tab.pack.is_contiguous()
+    assert tab.pack.dtype == dtype and pad > t
+    assert not tab.pack[t:].any()
+    v0c = v0 - tab.center
+    n = cross3(e1, e2)
+    v0n = n[:, 0] * v0c[:, 0] + n[:, 1] * v0c[:, 1] + n[:, 2] * v0c[:, 2]
+    wu, wv = cross3(v0c, e2), cross3(e1, v0c)
+    words = tab.pack[:t].reshape(t, 4, 4)
+    for word, want in ((0, [n, v0n[:, None]]), (1, [e2, wu[:, :1]]),
+                       (2, [wu[:, 1:], wv[:, :2]]), (3, [wv[:, 2:], e1])):
+        assert torch.equal(words[:, word], torch.cat(want, dim=1))
+    before = torch.cat([n.T, v0n[None], wu.T, wv.T, e1.T, e2.T], dim=0)
+    order = [F.N, F.N + 1, F.N + 2, F.V0N, *range(F.WU, F.WU + 3),
+             *range(F.WV, F.WV + 3), *range(F.E1, F.E1 + 3),
+             *range(F.E2, F.E2 + 3)]
+    assert torch.equal(tab.soa[order], before)
+    assert tab.soa.shape == (F.ROWS, t)
+    assert tab.soa.data_ptr() == tab.pack.data_ptr()
+
+
+@pytest.mark.parametrize("n_sms", [132, 114, 16])
+@pytest.mark.parametrize("n_tris", [10, 128, 1000, 106510, 250632])
+def test_fast_split_fills_the_card(n_sms, n_tris):
+    """fast_split counts blocks of FAST_THREADS * FAST_WIDTH rays and tiles
+    of FAST_TILE triangles: enough blocks for kernels.BLOCKS_PER_SM on
+    every SM, never more than there are tiles, so every block of the
+    kernel's even share takes at least one; a 1,085-ray march call splits
+    as far as the tiles allow.  K1's split is unchanged."""
+    target = kernels.BLOCKS_PER_SM * n_sms
+    block = F.FAST_THREADS * F.FAST_WIDTH
+    tiles = -(-n_tris // F.FAST_TILE)
+    for n_rays in (1, block - 1, block + 1, 1085, 16384, 32768):
+        m = F.fast_split(n_rays, n_tris, n_sms)
+        assert 1 <= m <= tiles
+        assert -(-n_rays // block) * m >= target or m == tiles
+        # The kernel's even share: block y takes tiles [y T / m, (y+1) T / m).
+        shares = [(y + 1) * tiles // m - y * tiles // m for y in range(m)]
+        assert min(shares) >= 1 and sum(shares) == tiles
+    assert F.fast_split(target * block, n_tris, n_sms) == 1
+    assert F.fast_split((target - 1) * block, n_tris, n_sms) == min(2, tiles)
+    k1 = intersect_brute.k1_split
+    assert k1(16384, n_tris, n_sms) == k1(16384, n_tris, n_sms,
+                                          intersect_brute.RAY_BLOCK,
+                                          intersect_brute.TRI_TILE)
+    assert k1(16384, 106510, 132) == 33
