@@ -120,6 +120,7 @@ CUDA device and exits 1 without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -259,13 +260,15 @@ def shadow_rays(scene, hit, light: int):
 
 def phase_build():
     from simd_raytracer_tpu_torch import kernels
+    from simd_raytracer_tpu_torch.utils.profiling import SETUP
     t0 = time.perf_counter()
     kernels.library()
     ptxas = [" ".join(line.split()) for line in kernels.build_log.splitlines()
              if "entry function" in line or "Used" in line or "spill" in line]
     report("1 device+build", device=torch.cuda.get_device_name(0),
            count=torch.cuda.device_count(), torch=torch.__version__,
-           cuda=torch.version.cuda, build_s=kernels.build_seconds,
+           cuda=torch.version.cuda,
+           build_s=SETUP.seconds.get("kernel_library"),
            load_s=time.perf_counter() - t0, ptxas=ptxas)
 
 
@@ -359,13 +362,12 @@ def render_cpu_vs_cuda(what, scene, cfg, seed):
     from torch_scenes import SeededUniforms
     imgs, secs = {}, {}
     for dev in ("cpu", DEV):
-        before = counts()
         t0 = time.perf_counter()
-        imgs[dev] = T.render_frame(scene, cfg, device=dev,
-                                   uniforms=lambda c: SeededUniforms(seed, c)
-                                   ).cpu()
+        with counting() as launches:
+            imgs[dev] = T.render_frame(
+                scene, cfg, device=dev,
+                uniforms=lambda c: SeededUniforms(seed, c)).cpu()
         secs[dev] = time.perf_counter() - t0
-    launches = {k: v - before[k] for k, v in counts().items()}
     if cfg.intersector in SELECT_KERNEL:
         need_launches(what, launches, SELECT_KERNEL[cfg.intersector])
     a, b = imgs["cpu"], imgs[DEV]
@@ -402,14 +404,17 @@ def phase_small(tmp):
 
 
 def render_timed(label, scene, cfg, accel=None, frames=3, phase="5"):
-    """One warm frame, then `frames` timed ones; checks the image."""
+    """One warm frame, then `frames` timed ones; checks the image.  The
+    launches are the warm frame's (the timed frames run untraced)."""
     import simd_raytracer_tpu_torch as T
-    before = counts()
     times, first = [], None
     for i in range(frames + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img = T.render_frame(scene, cfg, device=DEV, accel=accel)
+        with counting() if i == 0 else contextlib.nullcontext() as seen:
+            img = T.render_frame(scene, cfg, device=DEV, accel=accel)
+        if i == 0:
+            launches = seen
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         # The same config and seed: every frame is bitwise the first.
@@ -426,7 +431,6 @@ def render_timed(label, scene, cfg, accel=None, frames=3, phase="5"):
             and bool(torch.isfinite(img).all()) and not_bg > 0.01):
         raise AssertionError(f"{label}: bad image (shape {tuple(img.shape)}, "
                              f"non-background share {not_bg})")
-    launches = {k: v - before[k] for k, v in counts().items()}
     rays = scene.height * scene.width * cfg.samples_per_pixel
     mean = sum(times[1:]) / frames
     report(f"{phase} {label}", width=scene.width, height=scene.height,
@@ -454,14 +458,13 @@ def phase_full(tmp):
     bitmap = build_scene(**bitmap_scene_kwargs(256, 256)).to(DEV)
 
     default = scene.replace(height=FRAME, width=FRAME)
-    counts_reset()
     img, l_head, s_head = render_timed("headline roulette+sweep", scene,
                                        headline, accel)
     _, l_default, s_default = render_timed("default split+jnp", default,
                                            T.RenderConfig())
     _, l_bitmap, _ = render_timed("bitmap textures", bitmap,
                                   T.RenderConfig())
-    launches = counts()
+    launches = {k: l_head[k] + l_default[k] + l_bitmap[k] for k in l_head}
 
     out = os.path.join(tmp, "headline.ppm")
     T.save_ppm(img, out)
@@ -826,20 +829,24 @@ def phase_profile(phase, runs):
         report(f"{phase} profile {label}", **fields)
 
 
-def counts_reset() -> None:
-    from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
-                                              intersect_kd, intersect_sweep)
-    intersect_brute.LAUNCHES = 0
-    intersect_sweep.LAUNCHES = 0
-    intersect_kd.LAUNCHES = 0
-    intersect_fast.LAUNCHES = 0
+# The port's record counts each select kernel's launches under these
+# names (utils/profiling.py).
+LAUNCH_COUNTERS = {K1: "select.launches.brute",
+                   SWEEP: "select.launches.sweep",
+                   KD: "select.launches.kd", FAST: "select.launches.fast"}
 
 
-def counts() -> dict:
-    from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
-                                              intersect_kd, intersect_sweep)
-    return {K1: intersect_brute.LAUNCHES, SWEEP: intersect_sweep.LAUNCHES,
-            KD: intersect_kd.LAUNCHES, FAST: intersect_fast.LAUNCHES}
+@contextlib.contextmanager
+def counting():
+    """The select kernels' launches in the block, by kernel: a dict filled
+    when the block ends, from the record of the profiling.recording()
+    block it runs in (tracing is on inside it, so a timed block inside it
+    times the spans' small cost too)."""
+    from simd_raytracer_tpu_torch.utils import profiling
+    launches = {}
+    with profiling.recording() as rec:
+        yield launches
+    launches.update({k: rec.counts[c] for k, c in LAUNCH_COUNTERS.items()})
 
 
 def need_launches(what, launches, *kernels) -> None:
@@ -879,12 +886,10 @@ def phase_gi(small, full, accel):
     report("8 GI small render cpu vs cuda", width=SMALL_CHECK,
            height=SMALL_CHECK, triangles=int(small.tri_valid.sum()),
            cases=out)
-    counts_reset()
     cfg = gi_cfg()
     frame = full.replace(height=FRAME, width=FRAME)
-    _, _, frame_s = render_timed("GI frame roulette+sweep gi1", frame, cfg,
-                                 accel, frames=1, phase="8")
-    launches = counts()
+    _, launches, frame_s = render_timed("GI frame roulette+sweep gi1", frame,
+                                        cfg, accel, frames=1, phase="8")
     need_launches("GI frame", launches, SWEEP)
     return launches, (frame_run(frame, cfg, accel), frame_s, True)
 
@@ -963,7 +968,6 @@ def phase_train(label, phase, scene, accel, spp, gi, fd):
     target = torch.zeros((len(ids), 3), device=DEV)
     params, skeleton = G.split_params(scene)
     fields = {}
-    counts_reset()
     with torch.no_grad():
         loss0 = float(G.pixel_loss(params, skeleton, cfg, ids, target,
                                    torch_source(0), accel))
@@ -1002,10 +1006,10 @@ def phase_train(label, phase, scene, accel, spp, gi, fd):
         times.append(time.perf_counter() - t0)
         if not torch.isfinite(losses).all():
             raise AssertionError(f"{label}: non-finite losses {losses}")
-    with torch.no_grad():
+    # The launches of one forward pass (the timed steps run untraced).
+    with torch.no_grad(), counting() as launches:
         loss1 = float(G.pixel_loss(params, skeleton, cfg, ids, target,
                                    torch_source(0), accel))
-    launches = counts()
     need_launches(label, launches, SWEEP)
     if not loss1 < loss0:
         raise AssertionError(f"{label}: loss did not fall: {loss0} -> {loss1}")
@@ -1052,17 +1056,15 @@ def phase_refexact(small, full, accel):
            cases=out)
     frame = full.replace(height=FRAME, width=FRAME)
     cfg = refexact_cfg("sweep")
-    counts_reset()
-    _, _, frame_s = render_timed("refexact frame split+march+sweep", frame,
-                                 cfg, accel, frames=1, phase="12")
-    launches = counts()
+    _, launches, frame_s = render_timed("refexact frame split+march+sweep",
+                                        frame, cfg, accel, frames=1,
+                                        phase="12")
     need_launches("refexact frame (sweep)", launches, SWEEP)
 
     fcfg = refexact_cfg("fast")
-    counts_reset()
-    fimg, _, fast_s = render_timed("refexact frame split+march+fast", frame,
-                                   fcfg, None, frames=1, phase="12")
-    fast_launches = counts()
+    fimg, fast_launches, fast_s = render_timed(
+        "refexact frame split+march+fast", frame, fcfg, None, frames=1,
+        phase="12")
     need_launches("refexact frame (fast)", fast_launches, FAST)
     jimg, _, jnp_s = render_timed("refexact frame split+march+jnp", frame,
                                   refexact_cfg("jnp"), None, frames=1,
@@ -1662,15 +1664,17 @@ def phase_refbin(tmp):
         return T.render_frame(scene, cfg, device=DEV, accel=tree,
                               scheduling=sched)
 
-    counts_reset()
     times, imgs = [], []
-    for _ in range(2):
+    for i in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        imgs.append(run())
+        # The launches of the warm frame; the timed one runs untraced.
+        with counting() if i == 0 else contextlib.nullcontext() as seen:
+            imgs.append(run())
+        if i == 0:
+            launches = seen
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = counts()
     need_launches("kd frame", launches, KD)
     img = imgs[1]
     if not torch.equal(imgs[0], img):
@@ -1699,14 +1703,13 @@ def phase_refbin(tmp):
 
     small = scene.replace(height=FRAME, width=FRAME)
     deep = build_kdtree_for_scene(scene, max_depth=14)
-    counts_reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    deep_img = T.render_frame(small, cfg, device=DEV, accel=deep,
-                              scheduling=sched)
+    with counting() as deep_launches:
+        deep_img = T.render_frame(small, cfg, device=DEV, accel=deep,
+                                  scheduling=sched)
     torch.cuda.synchronize()
     deep_s = time.perf_counter() - t0
-    deep_launches = counts()
     need_launches("depth-14 kd frame", deep_launches, KD)
     for k in launches:
         launches[k] += deep_launches[k]
@@ -1738,7 +1741,6 @@ def phase_progressive(tmp, full, accel):
     from torch_scenes import mixed_doc
     cfg = T.RenderConfig(samples_per_pixel=8, max_ray_depth=5,
                          bounce_mode="roulette", intersector="sweep")
-    counts_reset()
     t0 = time.perf_counter()
     whole = render_progressive(full, cfg, 8, 4, accel=accel, device=DEV)
     whole_s = time.perf_counter() - t0
@@ -1758,9 +1760,10 @@ def phase_progressive(tmp, full, accel):
     except Stop:
         pass
     seen = []
-    resumed = render_progressive(full, cfg, 8, 4, checkpoint_path=ck,
-                                 on_batch=lambda n, _i: seen.append(n),
-                                 accel=accel, device=DEV)
+    with counting() as launches:
+        resumed = render_progressive(full, cfg, 8, 4, checkpoint_path=ck,
+                                     on_batch=lambda n, _i: seen.append(n),
+                                     accel=accel, device=DEV)
     # Batch b is seeded from (seed, b) alone and the fold-back adds in a
     # fixed order, so the resumed render is bitwise the whole one.
     diff = float(np.abs(resumed - whole).max())
@@ -1769,7 +1772,6 @@ def phase_progressive(tmp, full, accel):
             and np.array_equal(resumed, whole)):
         raise AssertionError(f"resumed render: batches {seen}, max |d| "
                              f"{diff} ({rel} relative)")
-    launches = counts()
     need_launches("progressive render", launches, SWEEP)
 
     frame = full.replace(height=FRAME, width=FRAME)
@@ -1856,13 +1858,13 @@ def phase_sharded(full, accel, headline_s):
         launches = dict.fromkeys(KERNELS, 0)
         times, ref_times = [], []
         for _ in range(2):
-            counts_reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            img = S.render_frame_sharded(full, cfg, mesh, accel=accel)
+            with counting() as seen:
+                img = S.render_frame_sharded(full, cfg, mesh, accel=accel)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            for k, v in counts().items():
+            for k, v in seen.items():
                 launches[k] += v
             t0 = time.perf_counter()
             ref = T.render_frame(full, cfg, device=DEV, accel=accel,
@@ -1880,15 +1882,15 @@ def phase_sharded(full, accel, headline_s):
         ids = interior_ids(full, tcfg, TRAIN_RAYS)
         target = torch.zeros((len(ids), 3), device=DEV)
         params, skeleton = G.split_params(full)
-        counts_reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        new, loss = S.train_step_sharded(
-            params, skeleton, tcfg, mesh, ids[None], target[None],
-            torch.tensor([[7]]), accel=accel)
+        with counting() as seen:
+            new, loss = S.train_step_sharded(
+                params, skeleton, tcfg, mesh, ids[None], target[None],
+                torch.tensor([[7]]), accel=accel)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        for k, v in counts().items():
+        for k, v in seen.items():
             launches[k] += v
         ref_new, ref_loss = G.train_step(params, skeleton, tcfg, ids, target,
                                          torch_source(7), accel=accel)
@@ -1899,11 +1901,11 @@ def phase_sharded(full, accel, headline_s):
                                  f"loss {float(loss)} vs {float(ref_loss)}, "
                                  f"params {moved}")
 
-        counts_reset()
         t0 = time.perf_counter()
-        dryrun_multichip(1, device=DEV)
+        with counting() as seen:
+            dryrun_multichip(1, device=DEV)
         dryrun_s = time.perf_counter() - t0
-        for k, v in counts().items():
+        for k, v in seen.items():
             launches[k] += v
         need_launches("sharded paths", launches, SWEEP, K1)
         report("17 sharded (NCCL world of one)", world_size=mesh.size,

@@ -6,6 +6,7 @@ kd-tree, render in bucket tiles)."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -51,7 +52,8 @@ def main(argv=None) -> int:
                     help="accumulation checkpoint path for progressive mode")
     ap.add_argument("--profile", action="store_true",
                     help="print per-phase timings (load, accel_build, "
-                         "render)")
+                         "render), then the render's spans by self time "
+                         "and its counters")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; pass cpu to render "
                          "on the CPU)")
@@ -62,7 +64,9 @@ def main(argv=None) -> int:
     from simd_raytracer_tpu_torch import (RenderConfig, parse_scene_file,
                                           render_frame, save_ppm)
     from simd_raytracer_tpu_torch.ops.render import build_accel
-    from simd_raytracer_tpu_torch.utils.profiling import PhaseTimer
+    from simd_raytracer_tpu_torch.utils.profiling import (PhaseTimer,
+                                                          format_record,
+                                                          recording)
 
     timer = PhaseTimer()
     with timer.phase("load"):
@@ -90,7 +94,8 @@ def main(argv=None) -> int:
                       "bucket": SchedulingType.BUCKET_TILES}[args.scheduling]
 
     t0 = time.perf_counter()
-    with timer.phase("render"):
+    traced = recording() if args.profile else contextlib.nullcontext()
+    with timer.phase("render"), traced as rec:
         if args.progressive_batch:
             from simd_raytracer_tpu_torch.utils.checkpoint import (
                 render_progressive)
@@ -107,6 +112,7 @@ def main(argv=None) -> int:
     print(f"Rendering took {time.perf_counter() - t0} seconds.")
     if args.profile:
         print(timer.report())
+        print(format_record(rec.read()))
     save_ppm(img, args.output)
     return 0
 

@@ -18,7 +18,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -42,9 +41,6 @@ BLOCKS_PER_SM = 32
 
 _lock = threading.Lock()
 _lib = None
-# Seconds the nvcc build took in this process (0.0 when the library was
-# already built), set by library().
-build_seconds = None
 # What ptxas said about each kernel when the library was built (kept in a
 # file beside it), set by library().
 build_log = ""
@@ -131,19 +127,21 @@ def _bind(path: str) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first call."""
-    global _lib, build_seconds, build_log
+    """The kernel library, built on first call (the set-up phase
+    `kernel_library` of utils/profiling.py::SETUP: the nvcc build or the
+    load, and the binding)."""
+    global _lib, build_log
+    from .utils.profiling import SETUP
     with _lock:
         if _lib is None:
-            path = library_path()
-            t0 = time.perf_counter()
-            if not os.path.exists(path):
-                _build(path)
-            build_seconds = time.perf_counter() - t0
-            if os.path.exists(path + ".ptxas.txt"):
-                with open(path + ".ptxas.txt") as f:
-                    build_log = f.read()
-            _lib = _bind(path)
+            with SETUP.phase("kernel_library"):
+                path = library_path()
+                if not os.path.exists(path):
+                    _build(path)
+                if os.path.exists(path + ".ptxas.txt"):
+                    with open(path + ".ptxas.txt") as f:
+                        build_log = f.read()
+                _lib = _bind(path)
     return _lib
 
 

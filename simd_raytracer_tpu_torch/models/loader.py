@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..utils.profiling import SETUP
 from .scene import (MAT_CONSTANT, MAT_DIFFUSE, MAT_REFLECTIVE, MAT_REFRACTIVE,
                     MAT_TEXTURE, TEX_ALBEDO, TEX_BITMAP, TEX_CHECKER,
                     TEX_EDGES, Scene, build_scene)
@@ -45,6 +46,7 @@ def _resolve_bitmap_path(fp: str, base_dir: str) -> str:
     return next((c for c in candidates if os.path.exists(c)), fp)
 
 
+@SETUP.phase("load")
 def parse_scene_dict(doc: Dict[str, Any], base_dir: str = ".") -> Scene:
     settings = _require(doc, "settings", "scene")
     image_settings = _require(settings, "image_settings", "settings")
@@ -160,6 +162,7 @@ def _scene_from_native(raw: Dict[str, Any], base_dir: str) -> Scene:
         width=raw["width"], bucket_size=raw["bucket_size"])
 
 
+@SETUP.phase("load")
 def parse_scene_file(path: str, use_native: Optional[bool] = None) -> Scene:
     """Parse a `.crtscene` file into a CPU Scene.
 

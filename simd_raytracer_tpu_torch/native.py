@@ -134,17 +134,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    """The library, built on first call; None when it cannot be."""
+    """The library, built on first call (the set-up phase
+    `native_library` of utils/profiling.py::SETUP); None when it cannot
+    be."""
     global _lib, _lib_tried
+    from .utils.profiling import SETUP
     with _lock:
         if _lib is None and not _lib_tried:
             _lib_tried = True
-            path = library_path()
-            if path is not None and (os.path.exists(path) or _build(path)):
-                try:
-                    _lib = _bind(ctypes.CDLL(path))
-                except OSError:
-                    _lib = None
+            with SETUP.phase("native_library"):
+                path = library_path()
+                if path is not None and (os.path.exists(path)
+                                         or _build(path)):
+                    try:
+                        _lib = _bind(ctypes.CDLL(path))
+                    except OSError:
+                        _lib = None
     return _lib
 
 

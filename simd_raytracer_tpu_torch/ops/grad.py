@@ -23,6 +23,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import Scene, derive_geometry
+from ..utils.profiling import span, spanned
 from .render import render_chunk, resolve_device
 
 # Scene leaves that make sense to differentiate.
@@ -71,6 +72,7 @@ def pixel_loss(params: Dict[str, torch.Tensor], skeleton: Scene,
     return torch.mean((colors - target) ** 2)
 
 
+@spanned("loss_and_grad")
 def loss_and_grad(params, skeleton: Scene, cfg: RenderConfig, ids, target,
                   uniforms, accel=None):
     """(loss, {name: d loss / d param}) through torch.autograd.grad; a
@@ -78,11 +80,13 @@ def loss_and_grad(params, skeleton: Scene, cfg: RenderConfig, ids, target,
     one where the ids are all padding)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
-        loss = pixel_loss(leaves, skeleton, cfg, ids, target, uniforms,
-                          accel)
-        grads = (torch.autograd.grad(loss, list(leaves.values()),
-                                     allow_unused=True)
-                 if loss.requires_grad else [None] * len(leaves))
+        with span("forward"):
+            loss = pixel_loss(leaves, skeleton, cfg, ids, target, uniforms,
+                              accel)
+        with span("backward"):
+            grads = (torch.autograd.grad(loss, list(leaves.values()),
+                                         allow_unused=True)
+                     if loss.requires_grad else [None] * len(leaves))
     return loss.detach(), {
         k: torch.zeros_like(v) if g is None else g
         for (k, v), g in zip(leaves.items(), grads)}

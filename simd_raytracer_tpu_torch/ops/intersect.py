@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..models.scene import Geometry, Scene, TensorStruct, cross3, dot3
+from ..utils import profiling
 
 BIG = 3.4e38          # stand-in for numeric_limits<float>::max
 IMAX = 2**31 - 1
@@ -127,6 +128,21 @@ def mt_select(o, d, v0, e1, e2, eps: float, cull: bool,
     return best_i.to(torch.int32), best_t < BIG
 
 
+def counted_select(fn):
+    """Decorator of a select under the common contract: while tracing,
+    each call is span `select` (wrapper included) and adds to the
+    `select.calls` and `select.rays` counters."""
+    @functools.wraps(fn)
+    def select(o, *args, **kwargs):
+        if not profiling.tracing():
+            return fn(o, *args, **kwargs)
+        with profiling.span("select"):
+            profiling.count("select.calls")
+            profiling.count("select.rays", o.shape[0])
+            return fn(o, *args, **kwargs)
+    return select
+
+
 def mt_refine(o, d, v0, e1, e2, eps: float = 1e-6):
     """Differentiable t, u, v for one (per-ray) triangle, without the
     accept tests (triangle.hpp:32-67).  The determinant is clamped at eps,
@@ -211,16 +227,18 @@ def make_select_fn(intersector: str, accel=None,
     raise ValueError(intersector)
 
 
+@counted_select
 def _kd_window_select(o, d, v0, e1, e2, eps, cull, tri_mask=None,
                       t_max=None, any_hit=False, *, tree, pack=None):
     """The kd select under the common contract, as the JAX package
     emulates it: the closest hit first; with a window, the winner's
     refined t decides `hit &= t <= t_max` (the window is not applied
     inside the walk); with any_hit, idx is zeros.  pack: the kernel's
-    packed tree and triangles (intersect_kd.packed), None to pack here."""
+    packed tree and triangles (intersect_kd.packed), None to pack here.
+    While tracing, the kernel adds its work to the record's kd counter."""
     from .intersect_kd import kd_select_cuda
     idx, hit = kd_select_cuda(o, d, v0, e1, e2, eps, cull, tri_mask, tree,
-                              pack)
+                              pack, counter=profiling.kd_counter(o.device))
     if t_max is not None:
         gidx = idx.long()
         t, _, _ = mt_refine(o, d, v0[gidx], e1[gidx], e2[gidx], eps)
@@ -230,6 +248,7 @@ def _kd_window_select(o, d, v0, e1, e2, eps, cull, tri_mask=None,
     return idx, hit
 
 
+@profiling.spanned("trace")
 def trace(o: torch.Tensor, d: torch.Tensor, scene: Scene, geom: Geometry,
           eps: float, cull: bool, tri_mask: Optional[torch.Tensor] = None,
           intersector: str = "jnp", accel=None) -> HitRecord:

@@ -20,12 +20,11 @@ import torch
 
 from .. import kernels
 from ..models.scene import pack_triangles
-from .intersect import BIG, any_pair, closest_pairs
+from ..utils import profiling
+from .intersect import BIG, any_pair, closest_pairs, counted_select
 from .select_keys import (check_eps, decode_any, decode_closest, key_t,
                           seed_keys)
 
-# Kernel launches made by mt_select_brute on CUDA tensors.
-LAUNCHES = 0
 # Rays per block and triangles per staged tile (kRays, kTile of
 # csrc/mt_select.cu).
 RAY_BLOCK = 128
@@ -60,6 +59,7 @@ def mt_select_reference(o, d, v0, e1, e2, eps, cull, tri_mask=None,
     return torch.where(won, best_i, 0).to(torch.int32), hit
 
 
+@counted_select
 def mt_select_brute(o, d, v0, e1, e2, eps, cull, tri_mask=None, t_max=None,
                     any_hit=False, tri_soa=None):
     """The brute-force select: the CUDA kernel for CUDA tensors, the plain
@@ -70,7 +70,6 @@ def mt_select_brute(o, d, v0, e1, e2, eps, cull, tri_mask=None, t_max=None,
     if not o.is_cuda:
         return mt_select_reference(o, d, v0, e1, e2, eps, cull, tri_mask,
                                    t_max, any_hit)
-    global LAUNCHES
     r, t = o.shape[0], v0.shape[0]
     for name, x, rows in (("o", o, r), ("d", d, r), ("v0", v0, t),
                           ("e1", e1, t), ("e2", e2, t)):
@@ -104,7 +103,7 @@ def mt_select_brute(o, d, v0, e1, e2, eps, cull, tri_mask=None, t_max=None,
             float(eps), int(bool(cull)), int(bool(any_hit)),
             keys.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
         kernels.check(rc, "mt_select")
-        LAUNCHES += 1
+        profiling.count("select.launches.brute")
     if any_hit:
         return decode_any(keys)
     idx, won = decode_closest(keys)

@@ -39,14 +39,11 @@ import torch
 
 from .. import kernels
 from ..models.scene import cross3
-from .intersect import BIG, _block
+from ..utils import profiling
+from .intersect import BIG, _block, counted_select
 from .intersect_brute import k1_split
 from .select_keys import check_eps, decode_any, decode_closest, seed_keys
 
-# Kernel launches made by mt_select_fast on CUDA tensors.
-LAUNCHES = 0
-# Tables built by fast_table (the render path builds one per frame).
-TABLES = 0
 # Columns of FastTable.pack (rows of FastTable.soa), in the order the
 # kernel's tests read them as four float4 words: n (3) and v0 . n (the cull
 # test; the t test), e2 (3) and wu = v0 x e2 (3) (the u test), wv = e1 x v0
@@ -83,10 +80,11 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
             and a.data_ptr() == b.data_ptr())
 
 
+@profiling.spanned("table")
 def fast_table(v0, e1, e2, dtype=None) -> FastTable:
     """The fast select's per-triangle constants, computed in `dtype`
-    (default v0's) on v0's device with the plain version's ops."""
-    global TABLES
+    (default v0's) on v0's device with the plain version's ops; counted
+    in `build.table` (the render path builds one per frame)."""
     src = tuple(x.detach() for x in (v0, e1, e2))
     dtype = v0.dtype if dtype is None else dtype
     v0, e1, e2 = (x.detach().to(dtype) for x in (v0, e1, e2))
@@ -99,7 +97,7 @@ def fast_table(v0, e1, e2, dtype=None) -> FastTable:
                        device=v0.device)
     pack[:t] = torch.cat([n, v0n[:, None], e2, cross3(v0, e2),
                           cross3(e1, v0), e1], dim=1)
-    TABLES += 1
+    profiling.count("build.table")
     return FastTable(center=center, pack=pack, source=src)
 
 
@@ -222,6 +220,7 @@ def fast_split(n_rays: int, n_tris: int, n_sms: int) -> int:
                     FAST_TILE)
 
 
+@counted_select
 def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
                    tri_mask: Optional[torch.Tensor] = None,
                    t_max: Optional[torch.Tensor] = None,
@@ -236,7 +235,6 @@ def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
     if not o.is_cuda:
         return mt_select_fast_reference(o, d, v0, e1, e2, eps, cull,
                                         tri_mask, t_max, any_hit, table)
-    global LAUNCHES
     r, t = o.shape[0], v0.shape[0]
     for name, x, rows in (("o", o, r), ("d", d, r), ("v0", v0, t),
                           ("e1", e1, t), ("e2", e2, t)):
@@ -269,7 +267,7 @@ def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
             float(eps), int(bool(cull)), int(bool(any_hit)), keys.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
         kernels.check(rc, "fast_select")
-        LAUNCHES += 1
+        profiling.count("select.launches.fast")
     if any_hit:
         return decode_any(keys)
     return decode_closest(keys)

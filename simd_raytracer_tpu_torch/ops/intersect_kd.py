@@ -24,11 +24,8 @@ from .. import kernels
 from ..accel.build import KdTree
 from ..accel.traverse import check_depth, kd_select
 from ..models.scene import TensorStruct
+from ..utils import profiling
 
-# Kernel launches made by kd_select_cuda on CUDA tensors.
-LAUNCHES = 0
-# Packs built by pack_kd (the render path builds one per frame or step).
-PACKS = 0
 # Triangles per staged tile: kTile of csrc/kd_select.cu.
 KD_TILE = 128
 # (rays per block, lanes per ray) shapes the kernel is instantiated for,
@@ -55,12 +52,13 @@ class KdPack(TensorStruct):
     num_tris: int = 0        # T of the soup the ids index
 
 
+@profiling.spanned("pack")
 def pack_kd(tree: KdTree, v0, e1, e2) -> KdPack:
     """Pack `tree` and the (T, 3) triangle rows v0, e1, e2 for the kernel,
     on the tree's device.  Leaf l's references (the ids >= 0 of its
     leaf_tris row) fill tiles leaf_tile[l] .. in row order; the rest of its
-    last tile carries id -1 and zeros."""
-    global PACKS
+    last tile carries id -1 and zeros.  Counted in `build.pack` (the
+    render path builds one per frame or step)."""
     dev = tree.leaf_tris.device
     box = torch.cat([tree.node_min, tree.node_max], dim=1).float()
     link = torch.stack([tree.child0, tree.child1, tree.leaf_id,
@@ -77,7 +75,7 @@ def pack_kd(tree: KdTree, v0, e1, e2) -> KdPack:
     soup = torch.cat([v0, e1, e2], dim=1).detach().to(device=dev,
                                                       dtype=torch.float32)
     tri = torch.where((ids >= 0)[:, None], soup[ids.clamp_min(0)], 0.0)
-    PACKS += 1
+    profiling.count("build.pack")
     return KdPack(
         box=box.contiguous(), link=link.contiguous(),
         tri=tri.reshape(n_tiles, KD_TILE, 9).transpose(1, 2).contiguous(),
@@ -120,7 +118,6 @@ def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
     KD_SHAPE."""
     if not o.is_cuda:
         return kd_select(o, d, v0, e1, e2, eps, cull, tri_mask, tree)
-    global LAUNCHES
     check_depth(tree)
     r, t = o.shape[0], v0.shape[0]
     for name, x, rows in (("o", o, r), ("d", d, r), ("v0", v0, t),
@@ -167,5 +164,5 @@ def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
             None if counter is None else counter.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
         kernels.check(rc, "kd_select")
-        LAUNCHES += 1
+        profiling.count("select.launches.kd")
     return idx, hit

@@ -37,7 +37,7 @@ from typing import Optional
 import torch
 
 from ..models.scene import cross3, dot3
-from .intersect import BIG
+from .intersect import BIG, counted_select
 
 RAY_BLOCK = 8192          # rays per product, as the JAX package's block
 PRODUCT_ELEMS = 1 << 26   # elements of one (rays, 4 x triangles) product
@@ -79,6 +79,7 @@ def ray_features(o, d) -> torch.Tensor:
                      dim=1)
 
 
+@counted_select
 def mt_select_mxu(o, d, v0, e1, e2, eps: float, cull: bool,
                   tri_mask: Optional[torch.Tensor] = None,
                   t_max: Optional[torch.Tensor] = None,

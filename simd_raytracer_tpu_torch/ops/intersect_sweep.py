@@ -29,11 +29,10 @@ import torch
 
 from .. import kernels
 from ..accel.sweep import R_TILE, SLICE_SIZE
-from .intersect import BIG, IMAX
+from ..utils import profiling
+from .intersect import BIG, IMAX, counted_select
 from .select_keys import check_eps, decode_any, decode_closest, seed_keys
 
-# Kernel launches made by sweep_select on CUDA tensors.
-LAUNCHES = 0
 # Rays per block of the kernel (kGroup of csrc/sweep_select.cu).
 GROUP = 128
 
@@ -233,7 +232,6 @@ def sweep_select(count, order, tnear, o, d, tmax, tri_soa, ids, mask, eps,
     if not o.is_cuda:
         return sweep_select_reference(count, order, tnear, o, d, tmax,
                                       tri_soa, ids, mask, eps, cull, any_hit)
-    global LAUNCHES
     p, s = order.shape
     rp = p * R_TILE
     expect = {"count": (count, (p, 1), torch.int32),
@@ -264,7 +262,7 @@ def sweep_select(count, order, tnear, o, d, tmax, tri_soa, ids, mask, eps,
             float(eps), int(bool(cull)), int(bool(any_hit)), keys.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
         kernels.check(rc, "sweep_select")
-        LAUNCHES += 1
+        profiling.count("select.launches.sweep")
     return decode_any(keys) if any_hit else decode_closest(keys)
 
 
@@ -326,6 +324,7 @@ def make_sweep_select(sweep):
     """Bind SweepData into the common select signature.  v0/e1/e2 are
     ignored: the slice geometry was packed at build time."""
 
+    @counted_select
     def select(o, d, v0, e1, e2, eps, cull, tri_mask=None, t_max=None,
                any_hit=False):
         r = o.shape[0]

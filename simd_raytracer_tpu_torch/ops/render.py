@@ -25,6 +25,8 @@ import torch
 from ..config import RenderConfig
 from ..models.camera import primary_rays
 from ..models.scene import Geometry, Scene, derive_geometry
+from ..utils import profiling
+from ..utils.profiling import span, spanned
 from .intersect import trace
 from .select_keys import check_eps
 from .shade import shade
@@ -91,16 +93,16 @@ def _scatter_rows(n: int, idx: torch.Tensor, vals: torch.Tensor,
     return out.index_put((idx,), vals)
 
 
+@spanned("chunk")
 def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
-                 ray_ids: torch.Tensor, uniforms, accel=None,
-                 occupancy: Optional[list] = None) -> torch.Tensor:
+                 ray_ids: torch.Tensor, uniforms, accel=None) -> torch.Tensor:
     """Render one chunk of global (pixel, sample) ray ids -> (R0, 3) colors.
 
     Ids >= H*W*spp are padding and contribute zero.  `uniforms` has
     `jitter(n)`, `coin(depth, n)` and `gi(depth, n, count)` (TorchUniforms
-    or an injected source).  occupancy: a list that receives the number of
-    live rays entering each bounce (utils/profiling.py::
-    wavefront_occupancy).
+    or an injected source).  While tracing, each bounce counts its
+    wavefront slots (`render.slots`) and the live rays entering it
+    (`render.live`, and `render.live.d<depth>`).
     """
     check_supported(cfg)
     r0 = ray_ids.shape[0]
@@ -139,9 +141,12 @@ def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
         if gi_count > 0 and not last:
             rnd_gi = torch.as_tensor(uniforms.gi(depth, n_cur, gi_count),
                                      dtype=dtype, device=dev)
-        alive = (weight > 0.0).nonzero()[:, 0]
-        if occupancy is not None:
-            occupancy.append(alive.numel())
+        with span("wait"):
+            alive = (weight > 0.0).nonzero()[:, 0]
+        if profiling.tracing():
+            profiling.count("render.slots", n_cur)
+            profiling.count("render.live", alive.numel())
+            profiling.count(f"render.live.d{depth}", alive.numel())
         if alive.numel() == 0:
             break
 
@@ -228,16 +233,18 @@ def build_accel(scene: Scene, cfg: RenderConfig):
     """The accelerator cfg.intersector needs, built from the scene on the
     host (CPU tensors): a KdTree for "kdtree" (the reference builds its
     kd_tree_simd_accel once per run, src/main.cpp:41), SweepData for
-    "sweep", None otherwise."""
+    "sweep", None otherwise.  Timed as the set-up phase `accel_build`."""
     if cfg.intersector == "kdtree":
-        from ..accel.build import build_kdtree_for_scene
-        return build_kdtree_for_scene(scene)
-    if cfg.intersector == "sweep":
-        from ..accel.sweep import build_sweep_for_scene
-        return build_sweep_for_scene(scene)
-    return None
+        from ..accel.build import build_kdtree_for_scene as build
+    elif cfg.intersector == "sweep":
+        from ..accel.sweep import build_sweep_for_scene as build
+    else:
+        return None
+    with profiling.SETUP.phase("accel_build"):
+        return build(scene)
 
 
+@spanned("frame")
 def render_frame(scene: Scene, cfg: RenderConfig = RenderConfig(), *,
                  device="cuda", accel=None,
                  uniforms: Optional[Callable[[int], object]] = None,
@@ -262,6 +269,7 @@ def render_frame(scene: Scene, cfg: RenderConfig = RenderConfig(), *,
         scene, geom, cfg, ids[c], uniforms(c), accel))
 
 
+@spanned("frame_setup")
 def frame_setup(scene: Scene, cfg: RenderConfig, device, accel=None,
                 scheduling=None):
     """A frame's inputs on `device` -> (scene, accel, geometry, ray-id
@@ -293,6 +301,7 @@ def fold_frame(scene: Scene, cfg: RenderConfig, ids: torch.Tensor,
     return (accum / spp).reshape(h, w, 3)
 
 
+@spanned("fold")
 def fold_chunk(accum: torch.Tensor, chunk: torch.Tensor,
                colors: torch.Tensor, spp: int, total: int) -> None:
     """Add one chunk's sample colors (R0, 3) into the pixel sums accum
@@ -306,7 +315,8 @@ def fold_chunk(accum: torch.Tensor, chunk: torch.Tensor,
     index_add_ adds without racing atomics on CUDA, and a pixel split
     between two chunks adds its two partial sums in chunk order.  Ids >=
     total are padding."""
-    keep = (chunk < total).nonzero()[:, 0]
+    with span("wait"):
+        keep = (chunk < total).nonzero()[:, 0]
     n = keep.numel()
     if n == 0:
         return

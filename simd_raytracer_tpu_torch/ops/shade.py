@@ -19,11 +19,13 @@ from ..models.scene import (MAT_CONSTANT, MAT_DIFFUSE, MAT_REFLECTIVE,
                             MAT_REFRACTIVE, MAT_TEXTURE, Geometry, Scene,
                             cross3, dot3, safe_normalize)
 from ..models.textures import sample_texture
+from ..utils.profiling import span, spanned
 from .intersect import HitRecord, make_select_fn, mt_refine
 
 FOUR_PI = 4.0 * math.pi
 
 
+@spanned("occlusion")
 def occluded(o: torch.Tensor, d: torch.Tensor, max_t: torch.Tensor,
              scene: Scene, geom: Geometry, cfg: RenderConfig,
              accel=None) -> torch.Tensor:
@@ -46,13 +48,15 @@ def occluded(o: torch.Tensor, d: torch.Tensor, max_t: torch.Tensor,
         _, crossed = select(o, d, geom.v0, geom.e1, geom.e2, cfg.epsilon,
                             False, geom.tri_valid & geom.tri_transmissive,
                             t_max=max_t, any_hit=True)
-        rows = crossed.nonzero()[:, 0]
+        with span("wait"):
+            rows = crossed.nonzero()[:, 0]
         if rows.numel():
             occ = occ.index_put((rows,), _march(
                 select, o[rows], d[rows], max_t[rows], geom, cfg))
     return occ
 
 
+@spanned("march")
 def _march(select, o, d, max_t, geom: Geometry, cfg: RenderConfig):
     """The reference's re-origining shadow march (render.hpp:110-131) for
     rays whose window crosses glass -> (N,) bool.
@@ -83,7 +87,8 @@ def _march(select, o, d, max_t, geom: Geometry, cfg: RenderConfig):
         o = pos + cfg.shadow_bias * d_c
         max_t = max_t - t
         # Loop guard `while (0 < max_t)` (render.hpp:115).
-        keep = (transmissive & (max_t > 0.0)).nonzero()[:, 0]
+        with span("wait"):
+            keep = (transmissive & (max_t > 0.0)).nonzero()[:, 0]
         rows, o, max_t = rows[keep], o[keep], max_t[keep]
     return occ
 
@@ -122,6 +127,7 @@ def direct_light_factor(scene: Scene, geom: Geometry, hit: HitRecord,
     return total
 
 
+@spanned("shade")
 def shade(scene: Scene, geom: Geometry, hit: HitRecord,
           d_in: torch.Tensor, weight: torch.Tensor, cfg: RenderConfig,
           accel=None, rnd_coin: Optional[torch.Tensor] = None,
@@ -151,7 +157,8 @@ def shade(scene: Scene, geom: Geometry, hit: HitRecord,
     # ---- direct light: shadow queries only for live diffuse/texture hits,
     # gathered exactly with nonzero (render.hpp:184-206) -----------------
     lit = is_diffuse | is_texture
-    need = (lit & hit.mask & (weight > 0.0)).nonzero()[:, 0]
+    with span("wait"):
+        need = (lit & hit.mask & (weight > 0.0)).nonzero()[:, 0]
     factor = torch.zeros_like(weight)
     if need.numel():
         sub = hit.map(lambda a: a[need])

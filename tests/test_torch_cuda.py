@@ -27,6 +27,7 @@ from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
                                           intersect_sweep)
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
 from simd_raytracer_tpu_torch.ops.shade import occluded
+from simd_raytracer_tpu_torch.utils import profiling
 from torch_scenes import SeededUniforms, grid_doc, mixed_doc
 
 pytestmark = pytest.mark.cuda
@@ -73,9 +74,9 @@ def test_mt_select_kernel_matches_plain(scene, cull, masked, windowed,
     mask = g.tri_valid & ~g.tri_transmissive if masked else g.tri_valid
     args = (o, d, g.v0, g.e1, g.e2, EPS, cull, mask,
             tmax if windowed else None, any_hit)
-    before = intersect_brute.LAUNCHES
-    got = intersect_brute.mt_select_brute(*args)
-    assert intersect_brute.LAUNCHES == before + 1
+    with profiling.recording() as rec:
+        got = intersect_brute.mt_select_brute(*args)
+    assert rec.counts["select.launches.brute"] == 1
     assert_equal(got, intersect_brute.mt_select_reference(*args))
     assert 0 < int(got[1].sum()) < len(o)
 
@@ -89,9 +90,9 @@ def test_sweep_kernel_matches_plain(scene, cull, windowed, any_hit):
     solid = g.tri_valid & ~g.tri_transmissive
     args = intersect_sweep.prepare_sweep(
         sweep, o, d, solid, tmax if windowed else None) + (EPS, cull, any_hit)
-    before = intersect_sweep.LAUNCHES
-    got = intersect_sweep.sweep_select(*args)
-    assert intersect_sweep.LAUNCHES == before + 1
+    with profiling.recording() as rec:
+        got = intersect_sweep.sweep_select(*args)
+    assert rec.counts["select.launches.sweep"] == 1
     assert_equal(got, intersect_sweep.sweep_select_reference(*args))
     if not any_hit:
         # Closest hits equal the brute-force kernel's where the window
@@ -225,9 +226,10 @@ def test_render_on_cuda_matches_cpu(scene, kw):
     s, _, _ = scene
     cfg = T.RenderConfig(max_ray_depth=3, chunk_size=1024, **kw)
     uniforms = lambda c: SeededUniforms(3, c)   # noqa: E731
-    before = intersect_brute.LAUNCHES + intersect_sweep.LAUNCHES
-    gpu = T.render_frame(s, cfg, device=DEV, uniforms=uniforms)
-    assert intersect_brute.LAUNCHES + intersect_sweep.LAUNCHES > before
+    with profiling.recording() as rec:
+        gpu = T.render_frame(s, cfg, device=DEV, uniforms=uniforms)
+    assert (rec.counts["select.launches.brute"]
+            + rec.counts["select.launches.sweep"]) > 0
     cpu = T.render_frame(s, cfg, device="cpu", uniforms=uniforms)
     assert gpu.is_cuda and torch.isfinite(gpu).all()
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4)
@@ -240,10 +242,10 @@ def test_select_bound_to_packed_triangles(scene, any_hit):
     s, g, _ = scene
     o, d, tmax = rays(s.cam_pos, 2000, seed=4)
     select = make_select_fn("jnp", geom=g)
-    before = intersect_brute.LAUNCHES
-    got = select(o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, tmax,
-                 any_hit)
-    assert intersect_brute.LAUNCHES == before + 1
+    with profiling.recording() as rec:
+        got = select(o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, tmax,
+                     any_hit)
+    assert rec.counts["select.launches.brute"] == 1
     assert_equal(got, intersect_brute.mt_select_brute(
         o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, tmax, any_hit))
 
@@ -296,12 +298,12 @@ def test_gradients_on_cuda_match_cpu(scene):
     for name, sc, dev in ((DEV, s, DEV), ("cpu", s, "cpu"),
                           ("cpu64", f64, "cpu")):
         params, skeleton = G.split_params(sc.to(dev))
-        before = intersect_sweep.LAUNCHES
-        out[name] = G.loss_and_grad(
-            params, skeleton, cfg, ids.to(dev),
-            torch.full((n, 3), 0.1, dtype=sc.vertices.dtype, device=dev),
-            SeededUniforms(8, 0), sweep.to(dev))
-        assert (intersect_sweep.LAUNCHES > before) == (dev == DEV)
+        with profiling.recording() as rec:
+            out[name] = G.loss_and_grad(
+                params, skeleton, cfg, ids.to(dev),
+                torch.full((n, 3), 0.1, dtype=sc.vertices.dtype, device=dev),
+                SeededUniforms(8, 0), sweep.to(dev))
+        assert (rec.counts["select.launches.sweep"] > 0) == (dev == DEV)
     (lg, gg), (lc, gc), (_, g64) = out[DEV], out["cpu"], out["cpu64"]
     assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
     for k in G.DIFF_PARAM_NAMES:
@@ -347,9 +349,9 @@ def test_kd_select_kernel_matches_plain(scene, kdtree, cull, masked):
     o, d, _ = rays(s.cam_pos, 3000, seed=11)
     mask = g.tri_valid & ~g.tri_transmissive if masked else g.tri_valid
     args = (o, d, g.v0, g.e1, g.e2, EPS, cull, mask, kdtree)
-    before = intersect_kd.LAUNCHES
-    got = intersect_kd.kd_select_cuda(*args)
-    assert intersect_kd.LAUNCHES == before + 1
+    with profiling.recording() as rec:
+        got = intersect_kd.kd_select_cuda(*args)
+    assert rec.counts["select.launches.kd"] == 1
     assert_equal(got, kd_select(*args))
     assert 0 < int(got[1].sum()) < len(o)
     brute = intersect_brute.mt_select_brute(o, d, g.v0, g.e1, g.e2, EPS,
@@ -390,10 +392,11 @@ def test_kdtree_and_kdleaf_renders_on_cuda_match_cpu(scene):
                             samples_per_pixel=2, bounce_mode="roulette",
                             intersector="sweep"),
              build_sweep_for_scene(s, partition="kdleaf"), None)):
-        before = intersect_kd.LAUNCHES + intersect_sweep.LAUNCHES
-        gpu = T.render_frame(s, cfg, device=DEV, accel=accel,
-                             uniforms=uniforms, scheduling=sched)
-        assert intersect_kd.LAUNCHES + intersect_sweep.LAUNCHES > before
+        with profiling.recording() as rec:
+            gpu = T.render_frame(s, cfg, device=DEV, accel=accel,
+                                 uniforms=uniforms, scheduling=sched)
+        assert (rec.counts["select.launches.kd"]
+                + rec.counts["select.launches.sweep"]) > 0
         cpu = T.render_frame(s, cfg, device="cpu", accel=accel,
                              uniforms=uniforms, scheduling=sched)
         torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4)
@@ -557,9 +560,9 @@ def test_fast_kernel_matches_plain(scene, cull, masked, windowed, any_hit):
             tmax if windowed else None, any_hit)
     select = make_select_fn("fast", geom=g)
     assert select.keywords["table"].soa.dtype == torch.float32
-    before = intersect_fast.LAUNCHES
-    got = select(*args)
-    assert intersect_fast.LAUNCHES == before + 1
+    with profiling.recording() as rec:
+        got = select(*args)
+    assert rec.counts["select.launches.fast"] == 1
     assert_equal(got, intersect_fast.mt_select_fast_reference(
         *args, table=intersect_fast.table_of(g)))
     assert_equal(intersect_fast.mt_select_fast(*args), got)
@@ -588,9 +591,9 @@ def test_fast_kernel_odd_shapes_match_plain(scene, n_rays, n_tris, windowed,
         v0, e1, e2 = g.v0[pick], g.e1[pick], g.e2[pick]
         mask = torch.arange(n_tris, device=DEV) % 7 != 3
     args = (o, d, v0, e1, e2, EPS, False, mask, tmax, any_hit)
-    before = intersect_fast.LAUNCHES
-    got = intersect_fast.mt_select_fast(*args)
-    assert intersect_fast.LAUNCHES == before + (n_rays > 0)
+    with profiling.recording() as rec:
+        got = intersect_fast.mt_select_fast(*args)
+    assert rec.counts["select.launches.fast"] == (n_rays > 0)
     assert got[0].shape == (n_rays,)
     assert_equal(got, intersect_fast.mt_select_fast_reference(*args))
     if n_rays:
@@ -630,9 +633,9 @@ def fast_exact(args, split_over=1):
     the call's split must exceed `split_over` - 1."""
     r, t = args[0].shape[0], args[2].shape[0]
     assert intersect_fast.fast_split(r, t, kernels.sm_count(0)) >= split_over
-    before = intersect_fast.LAUNCHES
-    got = intersect_fast.mt_select_fast(*args)
-    assert intersect_fast.LAUNCHES == before + (r > 0)
+    with profiling.recording() as rec:
+        got = intersect_fast.mt_select_fast(*args)
+    assert rec.counts["select.launches.fast"] == (r > 0)
     assert_equal(got, intersect_fast.mt_select_fast_reference(*args))
     return got
 
@@ -804,9 +807,10 @@ def test_fast_and_mxu_renders_on_cuda_match_cpu(scene, intersector):
     cfg = T.RenderConfig(max_ray_depth=3, chunk_size=1024,
                          occlusion_mode="march", intersector=intersector)
     uniforms = lambda c: SeededUniforms(6, c)   # noqa: E731
-    before = intersect_fast.LAUNCHES
-    gpu = T.render_frame(s, cfg, device=DEV, uniforms=uniforms)
-    assert (intersect_fast.LAUNCHES > before) == (intersector == "fast")
+    with profiling.recording() as rec:
+        gpu = T.render_frame(s, cfg, device=DEV, uniforms=uniforms)
+    assert ((rec.counts["select.launches.fast"] > 0)
+            == (intersector == "fast"))
     cpu = T.render_frame(s, cfg, device="cpu", uniforms=uniforms)
     assert gpu.is_cuda and torch.isfinite(gpu).all()
     if intersector == "fast":
@@ -845,3 +849,17 @@ def test_mxu_on_cuda_ignores_tf32(scene):
         assert float((strict[0].cpu()[both] == cpu[0][both]).float().mean()
                      ) > 0.999
         assert 0 < int(hit.sum()) < len(o)
+
+
+def test_kd_counters_are_read_from_the_record(scene):
+    """While tracing, the kd select hands the kernel the record's device
+    counter; record() reads it once.  Off, the kernel gets none."""
+    s, _, _ = scene
+    cfg = T.RenderConfig(max_ray_depth=3, chunk_size=256,
+                         intersector="kdtree")
+    with profiling.recording() as rec:
+        T.render_frame(s, cfg, device=DEV)
+    c = rec.read()["counts"]
+    assert c["select.launches.kd"] > 0 and c["kd.staged"] > 0
+    assert 0 < c["kd.tests"] <= c["kd.slots"]
+    assert profiling.kd_counter(torch.device(DEV, 0)) is None

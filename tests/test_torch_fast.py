@@ -17,6 +17,7 @@ from simd_raytracer_tpu_torch.models.scene import cross3
 from simd_raytracer_tpu_torch.ops import intersect_brute
 from simd_raytracer_tpu_torch.ops import intersect_fast as F
 from simd_raytracer_tpu_torch.ops.intersect import BIG, _block, make_select_fn
+from simd_raytracer_tpu_torch.utils import profiling
 from test_torch_select import CASES, rays
 from torch_scenes import mixed_doc
 
@@ -126,10 +127,10 @@ def test_table_is_built_once_from_the_geometry(scene):
     Geometry object, from g's own (v0, e1, e2), in g's dtype on the CPU;
     a frame builds one table for all of its selects."""
     s, g = scene
-    before = F.TABLES
-    a = make_select_fn("fast", geom=g).keywords["table"]
-    b = make_select_fn("fast", geom=g).keywords["table"]
-    assert a is b and F.TABLES <= before + 1
+    with profiling.recording() as rec:
+        a = make_select_fn("fast", geom=g).keywords["table"]
+        b = make_select_fn("fast", geom=g).keywords["table"]
+    assert a is b and rec.counts["build.table"] <= 1
     assert a.soa.shape == (F.ROWS, g.v0.shape[0])
     assert a.soa.dtype == g.v0.dtype
     for src, x in zip(a.source, (g.v0, g.e1, g.e2)):
@@ -144,11 +145,11 @@ def test_table_is_built_once_from_the_geometry(scene):
     assert torch.equal(a.soa[F.E1:F.E1 + 3], g.e1.T)
     assert torch.equal(a.soa[F.E2:F.E2 + 3], g.e2.T)
 
-    before = F.TABLES
-    T.render_frame(s.replace(height=8, width=8),
-                   T.RenderConfig(max_ray_depth=3, occlusion_mode="march",
-                                  intersector="fast"), device="cpu")
-    assert F.TABLES == before + 1
+    with profiling.recording() as rec:
+        T.render_frame(s.replace(height=8, width=8),
+                       T.RenderConfig(max_ray_depth=3, occlusion_mode="march",
+                                      intersector="fast"), device="cpu")
+    assert rec.counts["build.table"] == 1
 
 
 def test_table_of_other_triangles_is_refused(scene):
@@ -172,10 +173,11 @@ def test_cpu_select_never_touches_the_kernel(scene, monkeypatch, any_hit):
         raise AssertionError("the kernel library was asked for")
 
     monkeypatch.setattr(kernels, "library", no_library)
-    before = F.LAUNCHES
-    got = make_select_fn("fast", geom=g)(o, d, g.v0, g.e1, g.e2, EPS, False,
-                                         g.tri_valid, tmax, any_hit)
-    assert F.LAUNCHES == before
+    with profiling.recording() as rec:
+        got = make_select_fn("fast", geom=g)(o, d, g.v0, g.e1, g.e2, EPS,
+                                             False, g.tri_valid, tmax,
+                                             any_hit)
+    assert rec.counts["select.launches.fast"] == 0
     assert torch.equal(got[1], F.mt_select_fast_reference(
         o, d, g.v0, g.e1, g.e2, EPS, False, g.tri_valid, tmax, any_hit)[1])
 

@@ -29,6 +29,7 @@ from simd_raytracer_tpu_torch.accel.traverse import kd_select, kd_work_pairs
 from simd_raytracer_tpu_torch.native import native_build_kdtree
 from simd_raytracer_tpu_torch.ops import intersect_kd, intersect_sweep
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn, mt_select
+from simd_raytracer_tpu_torch.utils import profiling
 from torch_parity import port_scene
 from torch_scenes import grid_doc, mixed_doc, terrain_doc
 
@@ -156,9 +157,9 @@ def test_kd_select_matches_jax_and_brute_force(scenes, name, cull, masked):
                          jg.e2, EPS, cull, jnp.asarray(mask.numpy()), jtree)
     args = (torch.from_numpy(o), torch.from_numpy(d), tg.v0, tg.e1, tg.e2,
             EPS, cull, mask, tree)
-    before = intersect_kd.LAUNCHES
-    got = intersect_kd.kd_select_cuda(*args)   # CPU tensors: the plain walk
-    assert intersect_kd.LAUNCHES == before
+    with profiling.recording() as rec:
+        got = intersect_kd.kd_select_cuda(*args)   # CPU tensors: the walk
+    assert rec.counts["select.launches.kd"] == 0
     assert torch.equal(got[0], kd_select(*args)[0])
     ki, kh = got
     assert ki.dtype == torch.int32 and kh.dtype == torch.bool
@@ -261,20 +262,20 @@ def test_kdtree_select_fn_packs_once(scenes):
     tree = build_kdtree_for_scene(ts)
     o, d, tmax = (torch.from_numpy(x) for x in
                   rays(ts.cam_pos.numpy(), n=64, seed=6))
-    before = intersect_kd.PACKS
-    sel = make_select_fn("kdtree", tree, tg)
-    for any_hit in (False, True, False):
-        sel(o, d, tg.v0, tg.e1, tg.e2, EPS, False, tg.tri_valid, tmax,
-            any_hit)
-    assert make_select_fn("kdtree", tree, tg).keywords["pack"] is \
-        sel.keywords["pack"]
-    assert intersect_kd.PACKS == before + 1
-    make_select_fn("kdtree", tree, T.derive_geometry(ts))
-    assert intersect_kd.PACKS == before + 2
-    before = intersect_kd.PACKS
-    T.render_frame(ts, T.RenderConfig(intersector="kdtree", **KD_RENDER),
-                   device="cpu")
-    assert intersect_kd.PACKS == before + 1
+    with profiling.recording() as rec:
+        sel = make_select_fn("kdtree", tree, tg)
+        for any_hit in (False, True, False):
+            sel(o, d, tg.v0, tg.e1, tg.e2, EPS, False, tg.tri_valid, tmax,
+                any_hit)
+        assert make_select_fn("kdtree", tree, tg).keywords["pack"] is \
+            sel.keywords["pack"]
+        assert rec.counts["build.pack"] == 1
+        make_select_fn("kdtree", tree, T.derive_geometry(ts))
+        assert rec.counts["build.pack"] == 2
+    with profiling.recording() as rec:
+        T.render_frame(ts, T.RenderConfig(intersector="kdtree", **KD_RENDER),
+                       device="cpu")
+    assert rec.counts["build.pack"] == 1
 
 
 @pytest.mark.parametrize("cull", [True, False])

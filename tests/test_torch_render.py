@@ -16,9 +16,9 @@ import simd_raytracer_tpu as J
 import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu.ops.render import make_ray_chunks as j_chunks
 from simd_raytracer_tpu_torch.__main__ import main as cli_main
-from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
 from simd_raytracer_tpu_torch.ops.render import fold_chunk, make_ray_chunks
 from simd_raytracer_tpu_torch.parallel.tiles import SchedulingType
+from simd_raytracer_tpu_torch.utils import profiling
 from simd_raytracer_tpu_torch.utils.ppm import read_ppm, save_ppm
 from torch_parity import JaxUniforms, port_scene
 from torch_scenes import mixed_doc
@@ -75,11 +75,12 @@ def test_roulette_render_with_torch_generator(scenes):
 
 def test_cpu_render_launches_no_kernel(scenes):
     _, ts = scenes
-    before = (intersect_brute.LAUNCHES, intersect_sweep.LAUNCHES)
-    T.render_frame(ts["parsed"].replace(height=8, width=8),
-                   T.RenderConfig(max_ray_depth=2, intersector="sweep",
-                                  bounce_mode="roulette"), device="cpu")
-    assert (intersect_brute.LAUNCHES, intersect_sweep.LAUNCHES) == before
+    with profiling.recording() as rec:
+        T.render_frame(ts["parsed"].replace(height=8, width=8),
+                       T.RenderConfig(max_ray_depth=2, intersector="sweep",
+                                      bounce_mode="roulette"), device="cpu")
+    assert (rec.counts["select.launches.brute"],
+            rec.counts["select.launches.sweep"]) == (0, 0)
 
 
 @pytest.mark.parametrize("flags,kw", [

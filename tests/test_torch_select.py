@@ -20,6 +20,7 @@ from simd_raytracer_tpu.ops.intersect_pallas import mt_select_pallas
 from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
 from simd_raytracer_tpu_torch.ops import intersect as t_isect
 from simd_raytracer_tpu_torch.ops import intersect_brute, intersect_sweep
+from simd_raytracer_tpu_torch.utils import profiling
 from torch_scenes import mixed_doc, terrain_doc
 
 torch.set_num_threads(2)
@@ -115,11 +116,11 @@ def test_mt_select_reference_matches_pallas(mixed, cull, masked, windowed,
         cull, tm, t_max=tt, any_hit=any_hit)
     assert_same_winners(jg, o, d, ref, got)
     # On CPU tensors the wrapper is the plain version and launches nothing.
-    before = intersect_brute.LAUNCHES
-    again = intersect_brute.mt_select_brute(
-        torch.from_numpy(o), torch.from_numpy(d), tg.v0, tg.e1, tg.e2, EPS,
-        cull, tm, t_max=tt, any_hit=any_hit)
-    assert intersect_brute.LAUNCHES == before
+    with profiling.recording() as rec:
+        again = intersect_brute.mt_select_brute(
+            torch.from_numpy(o), torch.from_numpy(d), tg.v0, tg.e1, tg.e2,
+            EPS, cull, tm, t_max=tt, any_hit=any_hit)
+    assert rec.counts["select.launches.brute"] == 0
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
@@ -245,9 +246,10 @@ def test_sweep_streaming_size_matches_jax(big_terrain, windowed, any_hit):
 def test_sweep_reference_counts_no_launch(mixed):
     js, jg, ts, tg = mixed
     o, d, _ = rays(js.cam_pos, n=100, seed=8)
-    before = intersect_sweep.LAUNCHES
-    idx, hit = intersect_sweep.make_sweep_select(build_sweep_for_scene(ts))(
-        torch.from_numpy(o), torch.from_numpy(d), tg.v0, tg.e1, tg.e2, EPS,
-        False)
-    assert intersect_sweep.LAUNCHES == before
+    with profiling.recording() as rec:
+        idx, hit = intersect_sweep.make_sweep_select(
+            build_sweep_for_scene(ts))(torch.from_numpy(o),
+                                       torch.from_numpy(d), tg.v0, tg.e1,
+                                       tg.e2, EPS, False)
+    assert rec.counts["select.launches.sweep"] == 0
     assert idx.shape == (100,) and hit.dtype == torch.bool
