@@ -107,11 +107,21 @@ Phases, one result line each:
      and K1, winners against K1 by JAX's select bar; one timed 480x480
      frame of the full scene (split, spp 1, depth 5) against the
      brute-force frame.
-Phases 5, 8-12 and 15-17 each count the kernel launches of their own
+ 20. the gathers' backward (ops/gather.py::row_sums, csrc/gather_grad.cu)
+     at the train step's shapes: 65,536 entries over 2,012 rows (half of
+     them on row 0, as missed slots read triangle 0) at widths 3, 6 and 9,
+     and one row of 65,536 duplicates: bitwise equal to its plain version
+     and to itself run again, timed whole (the sort and both passes), each
+     pass by the profiler, beside its bound (its bytes over 3.35 TB/s),
+     the plain version and index_put_(accumulate=True); then two
+     loss_and_grad calls of phase 10's step with GI (bitwise equal, every
+     gradient), the gather kernel's launches counted.
+Phases 5, 8-12, 15-17 and 20 each count the kernel launches of their own
 paths from zero and fail if a kernel of the path never launched; the
 kernel line reports their sum, with phase 6's, 14's and 18's times and
 bounds of the sweep's full-reach secondary call and K1's, the kd kernel's
-and the fast kernel's primary chunks (named by each entry's `call`).  The
+and the fast kernel's primary chunks, and phase 20's of the gathers'
+backward at width 9 (named by each entry's `call`).  The
 last three lines are the card, a JSON object per kernel and
 {"ok": true, ...}.
 Every phase raises on failure, so the script exits non-zero.  It needs a
@@ -139,6 +149,7 @@ K1 = "mt_select"
 SWEEP = "sweep_select"
 KD = "kd_select"
 FAST = "fast_select"
+GATHER = "gather_grad"
 KERNELS = {
     K1: {"name": K1, "route": "cuda",
          "source": "simd_raytracer_tpu_torch/csrc/mt_select.cu",
@@ -153,8 +164,12 @@ KERNELS = {
     FAST: {"name": FAST, "route": "cuda",
            "source": "simd_raytracer_tpu_torch/csrc/fast_select.cu",
            "replaces": "simd_raytracer_tpu/ops/intersect_mxu.py:67 (jnp)"},
+    GATHER: {"name": GATHER, "route": "cuda",
+             "source": "simd_raytracer_tpu_torch/csrc/gather_grad.cu",
+             "replaces": "none: the JAX package leaves the gathers' "
+                         "transpose (a scatter-add) to XLA"},
 }
-MAX_ERR = {K1: 0, SWEEP: 0, KD: 0, FAST: 0}
+MAX_ERR = {K1: 0, SWEEP: 0, KD: 0, FAST: 0, GATHER: 0}
 # Edge of the square frames of phases 5 (default), 8, 12, 18 and 19, and
 # the ray ids of each SGD step of phases 10 and 11 (bench.py's chunk).
 FRAME = 480
@@ -167,6 +182,9 @@ FAST_FLIPS = 1
 # and on CUDA.
 SMALL_CHECK = 64
 TRAIN_RAYS = 65536
+# Rows of the gathers' backward timed in phase 20: hw15/scene2's
+# triangles, the table the train step's gathers read most.
+GATHER_ROWS = 2012
 # Edge of the reference binary's full-width frame (phase 15).
 REFBIN = 960
 # The kernel each select name runs on the card ("mxu" is torch.matmul and
@@ -833,7 +851,8 @@ def phase_profile(phase, runs):
 # names (utils/profiling.py).
 LAUNCH_COUNTERS = {K1: "select.launches.brute",
                    SWEEP: "select.launches.sweep",
-                   KD: "select.launches.kd", FAST: "select.launches.fast"}
+                   KD: "select.launches.kd", FAST: "select.launches.fast",
+                   GATHER: "gather.launches"}
 
 
 @contextlib.contextmanager
@@ -905,9 +924,10 @@ def phase_grad_small(small):
     """CUDA against CPU gradients of a float32 render.  The tolerance is
     1e-3 * max|g_cpu| + 1e-6 + 2 * the CPU's own float32 error (its
     distance to the float64 gradient of the same render): the gathers'
-    backward sums terms that cancel (refine's 1/det on grazing hits), so a
-    float32 sum in another order, or with atomics, moves by about that
-    error; measured 6.6e-6 on a vertex whose gradient is 6.3e-3."""
+    backward sums terms that cancel (refine's 1/det on grazing hits), so
+    last-bit differences of the two devices' forwards move the sums by
+    about that error; measured 6.6e-6 on a vertex whose gradient is
+    6.3e-3."""
     import simd_raytracer_tpu_torch as T
     from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
     from simd_raytracer_tpu_torch.ops import grad as G
@@ -1922,6 +1942,86 @@ def phase_sharded(full, accel, headline_s):
     return launches
 
 
+def gather_call(label, n_rows, idx, width, seed):
+    """row_sums on one gather's shapes: exact against the plain version and
+    against itself, timed whole and by pass, beside its bound, the plain
+    version and index_put_(accumulate=True)."""
+    from simd_raytracer_tpu_torch.ops.gather import (row_sums,
+                                                     row_sums_reference)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    vals = torch.randn((len(idx), width), device=DEV, generator=g)
+    idx = torch.as_tensor(idx, device=DEV)
+    got = row_sums(idx, vals, n_rows)
+    plain = row_sums_reference(idx, vals, n_rows)
+    again = row_sums(idx, vals, n_rows)
+    err = float((got - plain).abs().max())
+    MAX_ERR[GATHER] = max(MAX_ERR[GATHER], err)
+    if not (torch.equal(got, plain) and torch.equal(got, again)):
+        raise AssertionError(f"{label}: gather_grad max |d| {err} against "
+                             f"its plain version, equal to itself run "
+                             f"again: {torch.equal(got, again)}")
+
+    def library():
+        return torch.zeros((n_rows, width), device=DEV).index_put_(
+            (idx,), vals, accumulate=True)
+
+    lib_err = float((got - library()).abs().max())
+    n_bytes = nbytes(vals, idx) + n_rows * width * 4
+    ms = event_ms(lambda: row_sums(idx, vals, n_rows), 50)
+    pass1, _ = kernel_ms(lambda: row_sums(idx, vals, n_rows),
+                         "piece_sums_kernel", 20)
+    pass2, _ = kernel_ms(lambda: row_sums(idx, vals, n_rows),
+                         "row_sums_kernel", 20)
+    bound_ms, bound_by = bound(0, n_bytes)
+    return {"entries": len(idx), "rows": n_rows, "width": width,
+            "largest_run": int(torch.bincount(idx).max()),
+            "ms": ms, "pass1_ms": pass1, "pass2_ms": pass2,
+            "sort_ms": event_ms(lambda: torch.sort(idx, stable=True), 50),
+            "plain_ms": event_ms(
+                lambda: row_sums_reference(idx, vals, n_rows), 5),
+            "library_ms": event_ms(library, 10),
+            "library_max_abs_diff": lib_err,
+            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+
+
+def phase_gather(full, accel):
+    """The gathers' backward at the train step's shapes, then in the train
+    path (phase 10's step with one diffuse ray): two loss_and_grad calls
+    of one source bitwise equal, the kernel launched twice a call."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.ops import grad as G
+    rng = np.random.default_rng(20)
+    calls = {}
+    for width in (3, 6, 9):
+        idx = rng.integers(0, GATHER_ROWS, TRAIN_RAYS)
+        idx[rng.random(TRAIN_RAYS) < 0.5] = 0
+        calls[f"{GATHER_ROWS} rows, width {width}"] = gather_call(
+            f"width {width}", GATHER_ROWS, idx, width, seed=width)
+    calls[f"one row of {TRAIN_RAYS:,}"] = gather_call(
+        "one row", 1, np.zeros(TRAIN_RAYS, np.int64), 3, seed=1)
+
+    cfg = T.RenderConfig(samples_per_pixel=4, max_ray_depth=5,
+                         chunk_size=TRAIN_RAYS, diffuse_reflection_ray_count=1,
+                         bounce_mode="roulette", intersector="sweep")
+    ids = interior_ids(full, cfg, TRAIN_RAYS)
+    target = torch.zeros((len(ids), 3), device=DEV)
+    params, skeleton = G.split_params(full)
+    runs = []
+    with counting() as launches:
+        for _ in range(2):
+            runs.append(G.loss_and_grad(params, skeleton, cfg, ids, target,
+                                        torch_source(3), accel))
+    need_launches("20 train step", launches, GATHER)
+    (l0, g0), (l1, g1) = runs
+    differ = [k for k in G.DIFF_PARAM_NAMES if not torch.equal(g0[k], g1[k])]
+    if differ or not torch.equal(l0, l1):
+        raise AssertionError(f"loss_and_grad is not reproducible: {differ}")
+    report("20 gathers' backward", calls=calls, train_launches=launches,
+           bitwise_repeat=True)
+    return launches, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1971,6 +2071,7 @@ def main() -> int:
     paths["17 sharded"] = phase_sharded(full, accel, headline_s)
     calls.update(phase_fast(full))
     phase_mxu(small, full)
+    paths["20 gathers' backward"], gather_calls = phase_gather(full, accel)
     for name, more in paths.items():
         if name[0] != "5":
             for k in launches:
@@ -1994,6 +2095,14 @@ def main() -> int:
             call={"what": what, "kind": call["kind"], "rays": call["rays"],
                   **{k: call[k] for k in ("tiles", "triangles", "split")
                      if k in call}})
+    what = f"{GATHER_ROWS} rows, width 9"
+    call = gather_calls[what]
+    KERNELS[GATHER].update(
+        launches=launches[GATHER], max_abs_err=MAX_ERR[GATHER],
+        ms=call["ms"], plain_ms=call["plain_ms"], bound_ms=call["bound_ms"],
+        bound_by=call["bound_by"], library_ms=call["library_ms"],
+        call={"what": what, "entries": call["entries"],
+              "rows": call["rows"], "width": call["width"]})
     report("done", seconds=time.perf_counter() - t_start,
            launches_by_path=paths)
     print(card)

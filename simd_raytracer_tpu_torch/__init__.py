@@ -7,9 +7,10 @@ textures, the brute-force, block-sparse sweep, kd-tree and division-free
 occlusion, the chunked wavefront render loop with the reference's tile
 schedules, gradients and SGD steps (`ops.grad`), progressive rendering,
 animation and profiling (`utils`), held against the JAX package of the
-same module paths and names.  On CUDA tensors the brute-force, sweep and
-kd selects run the kernels in `csrc/` (built with nvcc at first use, see
-kernels.py); on CPU tensors their plain torch versions.
+same module paths and names.  On CUDA tensors the brute-force, sweep, kd
+and fast selects and the gathers' backward (`ops/gather.py`) run the
+kernels in `csrc/` (built with nvcc at first use, see kernels.py); on CPU
+tensors their plain torch versions.
 """
 
 from .config import DEFAULT_CONFIG, RenderConfig

@@ -123,6 +123,10 @@ def _bind(path: str) -> ctypes.CDLL:
     # any_hit | keys, stream
     lib.srt_fast_select.argtypes = [p] * 6 + [i] * 3 + [f, i, i] + [p, p]
     lib.srt_fast_select.restype = i
+    # rows, perm, grad | n, width, n_rows, is_double | partial, out, stream
+    ll = ctypes.c_longlong
+    lib.srt_gather_grad.argtypes = [p] * 3 + [ll, i, ll, i] + [p] * 3
+    lib.srt_gather_grad.restype = i
     return lib
 
 

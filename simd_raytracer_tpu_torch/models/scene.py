@@ -16,6 +16,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..ops.gather import gather_rows
+
 # Material tags (reference scene/material/material.hpp:11-12 order).
 MAT_DIFFUSE = 0
 MAT_REFLECTIVE = 1
@@ -176,13 +178,13 @@ def derive_geometry(scene: Scene) -> Geometry:
     normalised sum of adjacent unit face normals, mesh.hpp:33-43)."""
     v = scene.vertices
     idx = scene.tri_vidx.long()
-    p0, p1, p2 = v[idx[:, 0]], v[idx[:, 1]], v[idx[:, 2]]
+    p0, p1, p2 = (gather_rows(v, idx[:, k]) for k in range(3))
     e1 = p1 - p0
     e2 = p2 - p0
     face_n = safe_normalize(cross3(e1, e2))
 
     vn_accum = vertex_sums(v.shape[0], idx, scene.tri_valid, face_n)
-    vn = safe_normalize(vn_accum)[idx]          # (T, 3, 3)
+    vn = gather_rows(safe_normalize(vn_accum), idx)   # (T, 3, 3)
 
     tri_transmissive = scene.mat_tag[scene.tri_mat.long()] == MAT_REFRACTIVE
     return Geometry(v0=p0, e1=e1, e2=e2, face_n=face_n, vn=vn, uv=scene.uv,

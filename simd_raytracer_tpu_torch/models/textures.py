@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.gather import gather_rows
 from .scene import TEX_BITMAP, TEX_CHECKER, TEX_EDGES, Scene
 
 
@@ -22,9 +23,9 @@ def sample_texture(scene: Scene, tex_id: torch.Tensor,
     UVs.  Returns (N, 3) colors."""
     tex_id = tex_id.long()
     tag = scene.tex_tag[tex_id]
-    color_a = scene.tex_color_a[tex_id]
-    color_b = scene.tex_color_b[tex_id]
-    param = scene.tex_param[tex_id]
+    color_a = gather_rows(scene.tex_color_a, tex_id)
+    color_b = gather_rows(scene.tex_color_b, tex_id)
+    param = gather_rows(scene.tex_param, tex_id)
 
     fu = w * uvs[:, 0, 0] + u * uvs[:, 1, 0] + v * uvs[:, 2, 0]
     fv = w * uvs[:, 0, 1] + u * uvs[:, 1, 1] + v * uvs[:, 2, 1]
@@ -49,7 +50,7 @@ def sample_texture(scene: Scene, tex_id: torch.Tensor,
                       torch.zeros_like(tw), tw - 1)
     flat = (scene.tex_offset[tex_id] + row * tw + col).clamp(
         0, scene.atlas.shape[0] - 1)
-    bitmap_color = scene.atlas[flat.long()]
+    bitmap_color = gather_rows(scene.atlas, flat.long())
 
     out = color_a
     out = torch.where((tag == TEX_EDGES)[:, None], edge_color, out)

@@ -5,7 +5,10 @@ to vertices, UVs, albedo, IOR, texture colors and texels, lights and the
 background come from torch autograd through the wavefront render.  The
 selects run under `torch.no_grad()` (visibility is piecewise constant), so
 gradients flow through the winning triangles' refined intersection math,
-shading and texture lookups; the select kernels need no backward.
+shading and texture lookups; the select kernels need no backward.  The
+scene tables' gathers go through `ops/gather.py::gather_rows`, whose
+backward sums each row's duplicates in a fixed order (a kernel on the
+card), so a step's gradients are the same bits on every run.
 
 Where JAX takes a PRNG key, these functions take a uniform source (an
 object with `jitter`, `coin` and `gi`, see `ops.render.TorchUniforms`), and

@@ -27,6 +27,7 @@ import torch
 
 from ..models.scene import Geometry, Scene, TensorStruct, cross3, dot3
 from ..utils import profiling
+from .gather import gather_rows
 
 BIG = 3.4e38          # stand-in for numeric_limits<float>::max
 IMAX = 2**31 - 1
@@ -259,9 +260,13 @@ def trace(o: torch.Tensor, d: torch.Tensor, scene: Scene, geom: Geometry,
     with torch.no_grad():
         idx, hit = select(o.detach(), d.detach(), geom.v0.detach(),
                           geom.e1.detach(), geom.e2.detach(), eps, cull, mask)
+    # The tables' gathers go through gather_rows: in training their
+    # backward is a deterministic segmented sum (ops/gather.py), where
+    # every missed slot's idx 0 makes one long run of duplicates.
     gidx = idx.long()
-    t, u, v = mt_refine(o, d, geom.v0[gidx], geom.e1[gidx], geom.e2[gidx],
-                        eps)
+    t, u, v = mt_refine(o, d, gather_rows(geom.v0, gidx),
+                        gather_rows(geom.e1, gidx),
+                        gather_rows(geom.e2, gidx), eps)
     # A missed ray carries idx 0, whose refine can reach the determinant
     # clamp; pin misses to a harmless finite record (ops/intersect.py:250).
     t = torch.where(hit, t, 1.0)
@@ -270,7 +275,7 @@ def trace(o: torch.Tensor, d: torch.Tensor, scene: Scene, geom: Geometry,
     w = 1.0 - u - v
     position = o + t[:, None] * d
 
-    vn = geom.vn[gidx]
+    vn = gather_rows(geom.vn, gidx)
     n_interp = (u[:, None] * vn[:, 1] + v[:, None] * vn[:, 2]
                 + w[:, None] * vn[:, 0])
     sq = dot3(n_interp, n_interp).clamp_min(1e-18)
@@ -279,7 +284,8 @@ def trace(o: torch.Tensor, d: torch.Tensor, scene: Scene, geom: Geometry,
     mat = geom.tri_mat[gidx].long()
     return HitRecord(
         mask=hit, idx=idx, t=t, u=u, v=v, w=w, position=position,
-        hit_n=hit_n, face_n=geom.face_n[gidx], uvs=geom.uv[gidx],
-        mat_tag=scene.mat_tag[mat], albedo=scene.mat_albedo[mat],
-        ior=scene.mat_ior[mat], smooth=scene.mat_smooth[mat],
+        hit_n=hit_n, face_n=gather_rows(geom.face_n, gidx),
+        uvs=gather_rows(geom.uv, gidx), mat_tag=scene.mat_tag[mat],
+        albedo=gather_rows(scene.mat_albedo, mat),
+        ior=gather_rows(scene.mat_ior, mat), smooth=scene.mat_smooth[mat],
         tex=scene.mat_tex[mat], mesh_idx=geom.tri_mesh[gidx])

@@ -283,8 +283,9 @@ def test_wrappers_reject_bad_input(scene):
 
 
 def test_gradients_on_cuda_match_cpu(scene):
-    """float32, roulette + sweep + GI.  The gathers' backward sums terms
-    that cancel and adds with atomics on CUDA, so gradients agree to
+    """float32, roulette + sweep + GI.  The forward rounds differently on
+    the two devices in its last bits, and the gathers' backward sums terms
+    that cancel, which magnifies those bits, so gradients agree to
     1e-3 * max|g| + 1e-6 plus twice the CPU's own float32 error against
     float64, not bitwise."""
     s, _, sweep = scene
@@ -863,3 +864,85 @@ def test_kd_counters_are_read_from_the_record(scene):
     assert c["select.launches.kd"] > 0 and c["kd.staged"] > 0
     assert 0 < c["kd.tests"] <= c["kd.slots"]
     assert profiling.kd_counter(torch.device(DEV, 0)) is None
+
+
+# ---- the gathers' backward (ops/gather.py, csrc/gather_grad.cu) -------------
+
+def gather_case(n_rows, n, width, dtype, seed):
+    """Indices as the render draws them (a third on row 0, the rest
+    uniform) and gradients, on the card."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n_rows, n)
+    idx[rng.random(n) < 1 / 3] = 0
+    vals = rng.normal(size=(n, width))
+    return (torch.tensor(idx, device=DEV),
+            torch.tensor(vals, dtype=dtype, device=DEV))
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_rows,n,width", [
+    (1, 65536, 3), (3, 5000, 9), (12, 65536, 3), (2012, 65536, 6),
+    (2012, 65536, 9), (5, 257, 1), (700, 700, 2), (4, 0, 3)],
+    ids=["one-row-65536", "3", "12", "2012-w6", "2012-w9", "piece+1",
+         "distinct", "empty"])
+def test_gather_grad_kernel_matches_plain(card, n_rows, n, width, dtype):
+    """The kernel makes the plain version's adds in its order, so both
+    dtypes agree bit for bit (float32 would otherwise differ by the sum's
+    rounding in another tree); float64 is also within 1e-12 of each row's
+    sum of |values| of index_put_(accumulate=True)."""
+    from simd_raytracer_tpu_torch.ops.gather import (row_sums,
+                                                     row_sums_reference)
+    idx, vals = gather_case(n_rows, n, width, dtype, seed=n_rows + width)
+    with profiling.recording() as rec:
+        got = row_sums(idx, vals, n_rows)
+    assert rec.counts["gather.launches"] == (2 if n else 0)
+    ref = row_sums_reference(idx, vals, n_rows)
+    assert got.dtype == dtype and torch.equal(got, ref)
+    if dtype == torch.float64:
+        want = torch.zeros_like(got).index_put_((idx,), vals,
+                                                accumulate=True)
+        scale = torch.zeros_like(got).index_put_((idx,), vals.abs(),
+                                                 accumulate=True)
+        assert bool(((got - want).abs() <= 1e-12 * scale).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_backward_is_bitwise_reproducible(card, dtype):
+    from simd_raytracer_tpu_torch.ops.gather import gather_rows
+    idx, vals = gather_case(2012, 65536, 9, dtype, seed=11)
+    table = torch.randn(2012, 3, 3, dtype=dtype, device=DEV,
+                        requires_grad=True)
+    grads = [torch.autograd.grad(gather_rows(table, idx),
+                                 table, vals.reshape(-1, 3, 3))[0]
+             for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_loss_and_grad_on_cuda_is_bitwise_reproducible(scene):
+    """Two loss_and_grad calls on one seed (roulette, GI, the brute-force
+    select, as the train cell) give the same bits: the gathers' backward
+    has no atomics, and every other backward op sums in a fixed order."""
+    s, _, _ = scene
+    cfg = T.RenderConfig(max_ray_depth=5, samples_per_pixel=2,
+                         bounce_mode="roulette", intersector="jnp",
+                         diffuse_reflection_ray_count=1)
+    n = 48 * 48 * 2
+    params, skeleton = G.split_params(s)
+    runs = []
+    for _ in range(2):
+        with profiling.recording() as rec:
+            runs.append(G.loss_and_grad(
+                params, skeleton, cfg, torch.arange(n, device=DEV),
+                torch.full((n, 3), 0.1, device=DEV), SeededUniforms(8, 0)))
+        calls = rec.counts["gather.backward.calls"]
+        assert calls > 0 and rec.counts["gather.launches"] == 2 * calls
+    (l0, g0), (l1, g1) = runs
+    assert torch.equal(l0, l1)
+    for k in G.DIFF_PARAM_NAMES:
+        assert torch.equal(g0[k], g1[k]), k
