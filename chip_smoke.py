@@ -116,7 +116,22 @@ Phases, one result line each:
      the plain version and index_put_(accumulate=True); then two
      loss_and_grad calls of phase 10's step with GI (bitwise equal, every
      gradient), the gather kernel's launches counted.
-Phases 5, 8-12, 15-17 and 20 each count the kernel launches of their own
+ 21. one bounce of shading (ops/shade.py, csrc/shade.cu) on two calls of
+     random rows over the full scene (tests/torch_scenes.py::shade_rows):
+     262,144 rows under the GI frame's shading (split, one diffuse ray,
+     march occlusion, the fast select) and 16,384 under the kd frame's
+     (split, no GI, two lights, fast occlusion, the kd-tree): the fused
+     path (three launches) bitwise equal to the plain torch version on
+     contrib and every child tensor, and, with every float input
+     requiring grad, on the values and gradients through the autograd
+     node; each path's host ms (until the call returns), wall ms (to a
+     synchronize), device busy ms and launches under torch.profiler, the
+     three kernels' own device ms beside their byte bound (the call's
+     inputs read once, its contributions, children and shadow rays
+     written once, over 3.35 TB/s) and beside the plain version's own
+     device ms from the same occlusion (`plain_shading_ms`: neither
+     includes the `need` compaction or the occlusion query).
+Phases 5, 8-12, 15-17, 20 and 21 each count the kernel launches of their own
 paths from zero and fail if a kernel of the path never launched; the
 kernel line reports their sum, with phase 6's, 14's and 18's times and
 bounds of the sweep's full-reach secondary call and K1's, the kd kernel's
@@ -150,6 +165,7 @@ SWEEP = "sweep_select"
 KD = "kd_select"
 FAST = "fast_select"
 GATHER = "gather_grad"
+SHADE = "shade"
 KERNELS = {
     K1: {"name": K1, "route": "cuda",
          "source": "simd_raytracer_tpu_torch/csrc/mt_select.cu",
@@ -168,8 +184,12 @@ KERNELS = {
              "source": "simd_raytracer_tpu_torch/csrc/gather_grad.cu",
              "replaces": "none: the JAX package leaves the gathers' "
                          "transpose (a scatter-add) to XLA"},
+    SHADE: {"name": SHADE, "route": "cuda",
+            "source": "simd_raytracer_tpu_torch/csrc/shade.cu",
+            "replaces": "none: jnp (simd_raytracer_tpu/ops/shade.py, "
+                        "which XLA fuses)"},
 }
-MAX_ERR = {K1: 0, SWEEP: 0, KD: 0, FAST: 0, GATHER: 0}
+MAX_ERR = {K1: 0, SWEEP: 0, KD: 0, FAST: 0, GATHER: 0, SHADE: 0}
 # Edge of the square frames of phases 5 (default), 8, 12, 18 and 19, and
 # the ray ids of each SGD step of phases 10 and 11 (bench.py's chunk).
 FRAME = 480
@@ -727,7 +747,9 @@ def device_profile(run):
     """One call of `run` (a frame or an SGD step) under torch.profiler ->
     (wall s, device busy s, device events, top kernels, {name: device s}).
     Busy time is the union of the intervals of every device event
-    (kernels, copies, sets)."""
+    (kernels, copies, sets).  The port's spans open `srt.<name>` ranges
+    under the profiler, which it mirrors onto the device's timeline as
+    annotations; they are not work and are left out."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -738,7 +760,10 @@ def device_profile(run):
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
+        user = getattr(e, "is_user_annotation", None)
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or (user is not None and user())
+                or e.name().startswith("srt.")):
             continue
         spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
         n, t = by_name.get(e.name(), (0, 0))
@@ -852,7 +877,7 @@ def phase_profile(phase, runs):
 LAUNCH_COUNTERS = {K1: "select.launches.brute",
                    SWEEP: "select.launches.sweep",
                    KD: "select.launches.kd", FAST: "select.launches.fast",
-                   GATHER: "gather.launches"}
+                   GATHER: "gather.launches", SHADE: "shade.launches"}
 
 
 @contextlib.contextmanager
@@ -2022,6 +2047,166 @@ def phase_gather(full, accel):
     return launches, calls
 
 
+# Rows of phase 21's shade calls: a GI split bounce's wavefront (16,384
+# primary rays, two slots a bounce, at depth 4) and a kd frame's chunk.
+SHADE_ROWS = {"gi": 262144, "kd": 16384}
+
+
+def shade_cfgs():
+    """Phase 21's shading: the GI frame's and the kd frame's."""
+    import simd_raytracer_tpu_torch as T
+    return {"gi": T.RenderConfig(diffuse_reflection_ray_count=1,
+                                 bounce_mode="split", intersector="fast",
+                                 occlusion_mode="march"),
+            "kd": T.RenderConfig(diffuse_reflection_ray_count=0,
+                                 bounce_mode="split", intersector="kdtree",
+                                 occlusion_mode="fast")}
+
+
+def shade_bytes(args, out, need) -> int:
+    """What the fused kernels must move at least: every input of the call
+    read once (the hit record's fields shading reads, d_in, weight, the
+    uniforms, `need`, the texture and light tables) and the contributions,
+    children and shadow rays (12 + 12 + 4 bytes a pair) written once."""
+    scene, _, hit, d_in, weight, _, _, coin, rnd_gi = args
+    n_lights = scene.light_pos.shape[0]
+    return (nbytes(hit.mask, hit.mat_tag, hit.position, hit.hit_n,
+                   hit.face_n, hit.smooth, hit.ior, hit.albedo, hit.tex,
+                   hit.u, hit.v, hit.w, hit.uvs, d_in, weight, coin, rnd_gi,
+                   need, scene.tex_tag, scene.tex_color_a, scene.tex_color_b,
+                   scene.tex_param, scene.tex_offset, scene.tex_width,
+                   scene.tex_height, scene.atlas, scene.light_pos,
+                   scene.light_intensity)
+            + nbytes(out[0], *out[1]) + 28 * n_lights * need.numel())
+
+
+def shade_call(label, scene, geom, cfg, accel, n, seed):
+    """One shade call over `n` random rows: the fused path against the
+    plain version (bitwise), each timed on the host and the device."""
+    from simd_raytracer_tpu_torch.ops import shade as S
+    from simd_raytracer_tpu_torch.ops.intersect import HitRecord
+    from torch_scenes import shade_rows
+    gi = cfg.diffuse_reflection_ray_count
+    rows = shade_rows(n, seed, int(scene.tex_tag.shape[0]), gi,
+                      scene.vertices.min(0).values.cpu().numpy(),
+                      scene.vertices.max(0).values.cpu().numpy())
+    t = {k: torch.from_numpy(v).to(DEV) for k, v in rows.items()}
+    d_in, weight, coin, rnd_gi = (t.pop(k) for k in
+                                  ("d_in", "weight", "rnd_coin", "rnd_gi"))
+    hit = HitRecord(**t)
+    args = (scene, geom, hit, d_in, weight, cfg, accel,
+            coin if cfg.bounce_mode == "roulette" else None,
+            rnd_gi if gi > 0 else None)
+    with counting() as launches:
+        got = S.shade(*args)
+    need_launches(f"21 {label}", launches, SHADE)
+    ref = S.shade_reference(*args)
+    for a, b in zip([got[0], *got[1]], [ref[0], *ref[1]]):
+        if a.dtype != torch.bool:
+            MAX_ERR[SHADE] = max(MAX_ERR[SHADE],
+                                 float((a - b).abs().max()) if a.numel()
+                                 else 0.0)
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: the shade kernels differ from "
+                                 f"the plain version (max |d| "
+                                 f"{MAX_ERR[SHADE]})")
+    shade_grad_check(label, args)
+    need = S.need_rows(hit, weight)
+    n_bytes = shade_bytes(args, got, need)
+    out = {"rows": n, "needed_rows": need.numel(),
+           "lights": int(scene.light_pos.shape[0]), "launches": launches,
+           "bitwise_equal": True, "bytes": n_bytes}
+    for path, fn in (("fused", lambda: S.shade_fused(*args)),
+                     ("plain", lambda: S.shade_reference(*args))):
+        host, wall = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        _, busy, events, top, by_name = device_profile(fn)
+        own = {k: v for k, v in by_name.items() if "select" not in k}
+        out[path] = {"host_ms": 1e3 * float(np.median(host)),
+                     "ms": 1e3 * float(np.median(wall)),
+                     "device_busy_ms": 1e3 * busy, "device_events": events,
+                     "device_ms_outside_select": 1e3 * sum(own.values()),
+                     "top": top}
+    kernels_ms = sum(v for k, v in device_profile(
+        lambda: S.shade_fused(*args))[4].items() if "shade_" in k) * 1e3
+    # The plain version's own device time, the same scope as the three
+    # kernels: its shading from the fused path's own occlusion, so neither
+    # the `need` compaction nor the occlusion query is in either.
+    occ, _ = S._shadow(scene, geom, hit, cfg, accel, need)
+    plain_ms = 1e3 * sum(device_profile(lambda: S.shade_reference(
+        *args, lights=(need, occ)))[4].values())
+    bound_ms, bound_by = bound(0, n_bytes)
+    out.update(kernels_ms=kernels_ms, plain_shading_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / kernels_ms,
+               host_ms_saved=out["plain"]["host_ms"] - out["fused"]["host_ms"])
+    return out
+
+
+def shade_grad_check(label, args):
+    """The call with every float input requiring grad, as in an SGD step:
+    `shade` (the kernels under the autograd node) against the plain
+    version, bitwise on the values and on every input's gradient."""
+    from simd_raytracer_tpu_torch.ops import shade as S
+    scene, geom, hit, d_in, weight, cfg, accel, coin, rnd_gi = args
+    gen = torch.Generator(device=DEV).manual_seed(21)
+
+    def run(fn):
+        leaves = [None if t is None else t.detach().clone().requires_grad_()
+                  for t in S._grad_inputs(scene, hit, d_in, weight, coin,
+                                          rnd_gi)]
+        nh = len(S._GRAD_HIT)
+        h = hit.replace(**dict(zip(S._GRAD_HIT, leaves[:nh])))
+        sc = scene.replace(**dict(zip(S._GRAD_SCENE, leaves[nh + 4:])))
+        contrib, children = fn(sc, geom, h, *leaves[nh:nh + 2], cfg, accel,
+                               *leaves[nh + 2:nh + 4])
+        outs = [contrib, *children[:3]]
+        loss = sum((o * torch.rand(o.shape, generator=gen.manual_seed(i),
+                                   device=DEV)).sum()
+                   for i, o in enumerate(outs))
+        grads = torch.autograd.grad(loss, [t for t in leaves
+                                           if t is not None],
+                                    allow_unused=True)
+        return outs + [children[3]], grads
+
+    with counting() as launches:
+        vals, grads = run(S.shade)
+    if launches[SHADE] == 0:
+        raise AssertionError(f"{label}: the grad call launched no kernel")
+    vals_p, grads_p = run(S.shade_reference)
+    for a, b in zip([*vals, *grads], [*vals_p, *grads_p]):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(
+                a, b)):
+            raise AssertionError(f"{label}: the autograd node's values or "
+                                 f"gradients differ from the plain version")
+
+
+def phase_shade(full):
+    """Phase 21: the fused shading against the plain version on a GI split
+    call and a kd call of random rows over the full scene."""
+    from simd_raytracer_tpu_torch import derive_geometry
+    from simd_raytracer_tpu_torch.ops.render import build_accel
+    geom = derive_geometry(full)
+    calls, launches = {}, {}
+    for which, cfg in shade_cfgs().items():
+        accel = build_accel(full, cfg)
+        accel = None if accel is None else accel.to(DEV)
+        label = f"{which} {SHADE_ROWS[which]:,} rows"
+        calls[label] = shade_call(label, full, geom, cfg, accel,
+                                  SHADE_ROWS[which], seed=21)
+        for k, v in calls[label]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    report("21 shade", calls=calls)
+    return launches, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2072,6 +2257,7 @@ def main() -> int:
     calls.update(phase_fast(full))
     phase_mxu(small, full)
     paths["20 gathers' backward"], gather_calls = phase_gather(full, accel)
+    paths["21 shade"], shade_calls = phase_shade(full)
     for name, more in paths.items():
         if name[0] != "5":
             for k in launches:
@@ -2103,6 +2289,13 @@ def main() -> int:
         bound_by=call["bound_by"], library_ms=call["library_ms"],
         call={"what": what, "entries": call["entries"],
               "rows": call["rows"], "width": call["width"]})
+    what = f"gi {SHADE_ROWS['gi']:,} rows"
+    call = shade_calls[what]
+    KERNELS[SHADE].update(
+        launches=launches[SHADE], max_abs_err=MAX_ERR[SHADE],
+        ms=call["kernels_ms"], plain_ms=call["plain_shading_ms"],
+        bound_ms=call["bound_ms"], bound_by=call["bound_by"],
+        library_ms=None, call={"what": what, "rows": call["rows"]})
     report("done", seconds=time.perf_counter() - t_start,
            launches_by_path=paths)
     print(card)

@@ -127,6 +127,24 @@ def _bind(path: str) -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.srt_gather_grad.argtypes = [p] * 3 + [ll, i, ll, i] + [p] * 3
     lib.srt_gather_grad.restype = i
+    # need, m, n_lights | position, hit_n, face_n, smooth, light_pos,
+    # light_intensity | shadow_bias, four_pi | shadow_o, shadow_d, max_t,
+    # term, stream
+    lib.srt_shade_lights.argtypes = [p, ll, i] + [p] * 6 + [f, f] + [p] * 5
+    lib.srt_shade_lights.restype = i
+    # need, m, n_lights | occ, term, factor, stream
+    lib.srt_shade_factor.argtypes = [p, ll, i] + [p] * 4
+    lib.srt_shade_factor.restype = i
+    # args (ops/shade.py::BounceArgs, by reference), stream
+    lib.srt_shade_bounce.argtypes = [p, p]
+    lib.srt_shade_bounce.restype = i
+    lib.srt_shade_args_size.argtypes = []
+    lib.srt_shade_args_size.restype = ll
+    from .ops.shade import BounceArgs
+    if lib.srt_shade_args_size() != ctypes.sizeof(BounceArgs):
+        raise RuntimeError(
+            f"csrc/shade.cu's BounceArgs takes {lib.srt_shade_args_size()} "
+            f"bytes, ops/shade.py's {ctypes.sizeof(BounceArgs)}")
     return lib
 
 

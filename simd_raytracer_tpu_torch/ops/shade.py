@@ -5,20 +5,37 @@ Every material's output is `direct + sum_i w_i * color(child_i)`, so each
 ray carries a throughput `weight` and a `miss_is_bg` flag; a hit emits its
 direct term at once and spawns up to K children with scaled weights.
 Counterpart of `simd_raytracer_tpu.ops.shade`.
+
+`shade` takes one of two paths with the same results.  On CUDA tensors,
+which must be float32, it is `shade_fused`: the shading math in three
+launches of `csrc/shade.cu` around the occlusion query, bit for bit the
+torch ops of the plain version (a frame's shade call otherwise enqueues
+some 300 small kernels).  Where a gradient is wanted (training) the last
+two launches run as an autograd node whose backward recomputes the plain
+version from the same occlusion and differentiates it.  On CPU tensors it
+is `shade_reference`, those torch ops.  While tracing, counters
+`shade.fused.calls`, `shade.fused.rows`, `shade.fused.grad_calls` and
+`shade.plain.calls` say which path ran, and `shade.launches` counts the
+kernels' launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
+from .. import kernels
 from ..config import RenderConfig
 from ..models.scene import (MAT_CONSTANT, MAT_DIFFUSE, MAT_REFLECTIVE,
                             MAT_REFRACTIVE, MAT_TEXTURE, Geometry, Scene,
                             cross3, dot3, safe_normalize)
 from ..models.textures import sample_texture
+from ..utils import profiling
 from ..utils.profiling import span, spanned
 from .intersect import HitRecord, make_select_fn, mt_refine
 
@@ -93,10 +110,22 @@ def _march(select, o, d, max_t, geom: Geometry, cfg: RenderConfig):
     return occ
 
 
+def need_rows(hit: HitRecord, weight: torch.Tensor) -> torch.Tensor:
+    """The rows that need direct light, live diffuse and textured hits
+    (render.hpp:184-206), gathered exactly with nonzero."""
+    tag = hit.mat_tag
+    lit = (tag == MAT_DIFFUSE) | (tag == MAT_TEXTURE)
+    with span("wait"):
+        return (lit & hit.mask & (weight > 0.0)).nonzero()[:, 0]
+
+
 def direct_light_factor(scene: Scene, geom: Geometry, hit: HitRecord,
-                        cfg: RenderConfig, accel=None) -> torch.Tensor:
+                        cfg: RenderConfig, accel=None,
+                        occ: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum over lights of visibility * intensity / (4 pi r^2) * cos_law
-    (render.hpp:184-206): (N,) factor for the caller's albedo or texel."""
+    (render.hpp:184-206): (N,) factor for the caller's albedo or texel.
+    `occ`, light-major (L * N,), is the visibility of an earlier query of
+    the same shadow rays; without it the rays are queried here."""
     n_rays = hit.position.shape[0]
     nl = scene.light_pos.shape[0]
 
@@ -108,16 +137,17 @@ def direct_light_factor(scene: Scene, geom: Geometry, hit: HitRecord,
     shade_n = torch.where(hit.smooth[:, None], hit.hit_n, hit.face_n)
     cos_law = dot3(ldir, shade_n[:, None, :]).clamp_min(0.0)          # N,L
 
-    shadow_o = hit.position[:, None, :] + cfg.shadow_bias * ldir
-    # A pair facing away from its light contributes nothing whatever the
-    # visibility, so its shadow query gets a zero-length window.
-    max_t = torch.where(cos_law > 0.0, r, 0.0)
-    # Light-major batching: consecutive shadow rays share one light, which
-    # keeps a sweep ray tile's direction box tight.
-    occ = occluded(shadow_o.transpose(0, 1).reshape(-1, 3),
-                   ldir.transpose(0, 1).reshape(-1, 3),
-                   max_t.T.reshape(-1), scene, geom, cfg, accel
-                   ).reshape(nl, n_rays).T
+    if occ is None:
+        shadow_o = hit.position[:, None, :] + cfg.shadow_bias * ldir
+        # A pair facing away from its light contributes nothing whatever
+        # the visibility, so its shadow query gets a zero-length window.
+        max_t = torch.where(cos_law > 0.0, r, 0.0)
+        # Light-major batching: consecutive shadow rays share one light,
+        # which keeps a sweep ray tile's direction box tight.
+        occ = occluded(shadow_o.transpose(0, 1).reshape(-1, 3),
+                       ldir.transpose(0, 1).reshape(-1, 3),
+                       max_t.T.reshape(-1), scene, geom, cfg, accel)
+    occ = occ.reshape(nl, n_rays).T
 
     falloff = scene.light_intensity[None, :] / area.clamp_min(1e-20)
     terms = torch.where(occ, 0.0, falloff * cos_law)
@@ -140,7 +170,70 @@ def shade(scene: Scene, geom: Geometry, hit: HitRecord,
     are the roulette uniforms and rnd_gi (N, gi, 2) the diffuse GI
     uniforms, drawn by the caller per wavefront slot.
     Returns (contrib (N, 3), children (o (N*K, 3), d (N*K, 3),
-    weight (N*K,), miss_bg (N*K,)))."""
+    weight (N*K,), miss_bg (N*K,))).
+
+    `shade_fused` on CUDA tensors, `shade_reference` on CPU tensors: the
+    same values either way."""
+    args = (scene, geom, hit, d_in, weight, cfg, accel, rnd_coin, rnd_gi)
+    if fused_applies(weight):
+        if profiling.tracing():
+            profiling.count("shade.fused.calls")
+            profiling.count("shade.fused.rows", weight.shape[0])
+        return shade_fused(*args)
+    if profiling.tracing():
+        profiling.count("shade.plain.calls")
+    return shade_reference(*args)
+
+
+def fused_applies(weight: torch.Tensor) -> bool:
+    """Whether `shade` runs the kernels: on CUDA tensors, which the
+    kernels take in float32 only (another dtype there is refused)."""
+    if not weight.is_cuda:
+        return False
+    if weight.dtype != torch.float32:
+        raise ValueError(f"shade: CUDA tensors must be float32 (the dtype "
+                         f"of csrc/shade.cu), got {weight.dtype}")
+    return True
+
+
+# The inputs of a shade call that autograd may differentiate: the hit
+# record's fields, then d_in, weight, rnd_coin and rnd_gi, then the scene's
+# tables (`_grad_inputs`).
+_GRAD_HIT = ("position", "hit_n", "face_n", "u", "v", "w", "uvs", "albedo",
+             "ior")
+_GRAD_SCENE = ("tex_color_a", "tex_color_b", "tex_param", "atlas",
+               "light_pos", "light_intensity")
+
+
+def _grad_inputs(scene: Scene, hit: HitRecord, d_in: torch.Tensor,
+                 weight: torch.Tensor, rnd_coin: Optional[torch.Tensor],
+                 rnd_gi: Optional[torch.Tensor]) -> list:
+    return ([getattr(hit, k) for k in _GRAD_HIT]
+            + [d_in, weight, rnd_coin, rnd_gi]
+            + [getattr(scene, k) for k in _GRAD_SCENE])
+
+
+def wants_grad(scene: Scene, hit: HitRecord, d_in: torch.Tensor,
+               weight: torch.Tensor, rnd_coin: Optional[torch.Tensor],
+               rnd_gi: Optional[torch.Tensor]) -> bool:
+    """Whether a shade call must be differentiable: grad mode on, and some
+    input of the call (`_grad_inputs`) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in _grad_inputs(scene, hit, d_in, weight, rnd_coin, rnd_gi))
+
+
+def shade_reference(scene: Scene, geom: Geometry, hit: HitRecord,
+                    d_in: torch.Tensor, weight: torch.Tensor,
+                    cfg: RenderConfig, accel=None,
+                    rnd_coin: Optional[torch.Tensor] = None,
+                    rnd_gi: Optional[torch.Tensor] = None,
+                    lights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    ) -> Tuple[torch.Tensor, Tuple]:
+    """`shade` as torch ops: the plain version of `shade_fused`, and what
+    autograd differentiates.  `lights` (need, occ) are `need_rows` and the
+    light-major visibility of their shadow rays from an earlier query;
+    without it both are computed here."""
     n = d_in.shape[0]
     k = cfg.child_slots
     gi_count = cfg.diffuse_reflection_ray_count
@@ -154,16 +247,14 @@ def shade(scene: Scene, geom: Geometry, hit: HitRecord,
     is_constant = tag == MAT_CONSTANT
     is_texture = tag == MAT_TEXTURE
 
-    # ---- direct light: shadow queries only for live diffuse/texture hits,
-    # gathered exactly with nonzero (render.hpp:184-206) -----------------
-    lit = is_diffuse | is_texture
-    with span("wait"):
-        need = (lit & hit.mask & (weight > 0.0)).nonzero()[:, 0]
+    # ---- direct light: shadow queries only for the rows that need light
+    # (render.hpp:184-206) -----------------------------------------------
+    need, occ = (need_rows(hit, weight), None) if lights is None else lights
     factor = torch.zeros_like(weight)
     if need.numel():
         sub = hit.map(lambda a: a[need])
         factor = factor.index_put((need,), direct_light_factor(
-            scene, geom, sub, cfg, accel))
+            scene, geom, sub, cfg, accel, occ))
     tex_color = sample_texture(scene, hit.tex, hit.u, hit.v, hit.w, hit.uvs)
     surf_color = torch.where(is_texture[:, None], tex_color, hit.albedo)
     # Diffuse divides its total (direct + GI) by gi + 1 (render.hpp:208);
@@ -291,3 +382,245 @@ def shade(scene: Scene, geom: Geometry, hit: HitRecord,
                 False)
     return contrib, (child_o.reshape(n * k, 3), child_d.reshape(n * k, 3),
                      child_w.reshape(n * k), child_bg.reshape(n * k))
+
+
+# The pointer fields of BounceArgs (csrc/shade.cu), in its order.
+_BOUNCE_POINTERS = (
+    "mask", "tag", "weight", "d_in", "position", "hit_n", "face_n", "smooth",
+    "ior", "albedo", "tex", "u", "v", "w", "uvs", "factor", "rnd_coin",
+    "rnd_gi", "tex_tag", "tex_color_a", "tex_color_b", "tex_param",
+    "tex_offset", "tex_width", "tex_height", "atlas", "contrib", "child_o",
+    "child_d", "child_w", "child_bg")
+
+
+class BounceArgs(ctypes.Structure):
+    """csrc/shade.cu's BounceArgs, field for field."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in _BOUNCE_POINTERS]
+                + [("n", ctypes.c_int64), ("atlas_rows", ctypes.c_int64),
+                   ("gi", ctypes.c_int), ("k", ctypes.c_int),
+                   ("roulette", ctypes.c_int)]
+                + [(name, ctypes.c_float) for name in (
+                    "direct_scale", "gi_count", "gi_inv", "pi", "two_pi",
+                    "reflection_bias", "refraction_bias")])
+
+
+def _rows(t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> int:
+    """The data pointer of `t` after checking what the kernels take."""
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"shade_fused: expected {dtype} {shape} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"shade_fused: a {tuple(t.shape)} input is not "
+                         f"contiguous")
+    return t.data_ptr()
+
+
+class _Call(NamedTuple):
+    """One fused shade call after its occlusion query: `shade`'s arguments,
+    the rows that need light, their light-major visibility and each pair's
+    falloff * cos_law (None where no row needs light)."""
+    scene: Scene
+    geom: Geometry
+    hit: HitRecord
+    d_in: torch.Tensor
+    weight: torch.Tensor
+    cfg: RenderConfig
+    accel: object
+    rnd_coin: Optional[torch.Tensor]
+    rnd_gi: Optional[torch.Tensor]
+    need: torch.Tensor
+    occ: Optional[torch.Tensor]
+    term: Optional[torch.Tensor]
+
+
+def shade_fused(scene: Scene, geom: Geometry, hit: HitRecord,
+                d_in: torch.Tensor, weight: torch.Tensor, cfg: RenderConfig,
+                accel=None, rnd_coin: Optional[torch.Tensor] = None,
+                rnd_gi: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Tuple]:
+    """`shade` through csrc/shade.cu, float32 CUDA tensors: `need_rows` as
+    in the plain version, then shade_lights (the shadow rays and each
+    pair's falloff * cos_law, light-major), `occluded` as it is, and
+    `_bounce`: shade_factor (the lights' sum into each needed row) and
+    shade_bounce (textures, contributions, children).  Equal to
+    `shade_reference` bit for bit.  Where `wants_grad`, `_bounce` runs as
+    the autograd node `_BounceGrad`."""
+    gi = cfg.diffuse_reflection_ray_count
+    if gi > 0 and rnd_gi is None:
+        raise ValueError("diffuse GI shading needs rnd_gi")
+    if cfg.bounce_mode == "roulette" and rnd_coin is None:
+        raise ValueError("roulette shading needs rnd_coin")
+    need = need_rows(hit, weight)
+    occ, term = _shadow(scene, geom, hit, cfg, accel, need)
+    call = _Call(scene, geom, hit, d_in, weight, cfg, accel, rnd_coin,
+                 rnd_gi, need, occ, term)
+    if wants_grad(scene, hit, d_in, weight, rnd_coin, rnd_gi):
+        profiling.count("shade.fused.grad_calls")
+        contrib, *children = _BounceGrad.apply(call, *_grad_inputs(
+            scene, hit, d_in, weight, rnd_coin, rnd_gi))
+        return contrib, tuple(children)
+    return _bounce(call)
+
+
+def _shadow(scene: Scene, geom: Geometry, hit: HitRecord,
+            cfg: RenderConfig, accel, need: torch.Tensor):
+    """shade_lights over the rows `need`, then `occluded` on its shadow
+    rays: (occ, term), each light-major (L * M,), or (None, None) where no
+    row needs light."""
+    m = need.numel()
+    if not m:
+        return None, None
+    n = hit.position.shape[0]
+    dev = hit.position.device
+    f32 = torch.float32
+    row3 = (n, 3)
+    nl = scene.light_pos.shape[0]
+    pairs = nl * m
+    shadow_o = torch.empty((pairs, 3), dtype=f32, device=dev)
+    shadow_d = torch.empty((pairs, 3), dtype=f32, device=dev)
+    max_t = torch.empty(pairs, dtype=f32, device=dev)
+    term = torch.empty(pairs, dtype=f32, device=dev)
+    kernels.check(kernels.library().srt_shade_lights(
+        need.data_ptr(), m, nl, _rows(hit.position, f32, row3, dev),
+        _rows(hit.hit_n, f32, row3, dev), _rows(hit.face_n, f32, row3, dev),
+        _rows(hit.smooth, torch.bool, (n,), dev),
+        _rows(scene.light_pos, f32, (nl, 3), dev),
+        _rows(scene.light_intensity, f32, (nl,), dev),
+        np.float32(cfg.shadow_bias), np.float32(FOUR_PI),
+        shadow_o.data_ptr(), shadow_d.data_ptr(), max_t.data_ptr(),
+        term.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "shade_lights")
+    profiling.count("shade.launches")
+    return occluded(shadow_o, shadow_d, max_t, scene, geom, cfg,
+                    accel), term
+
+
+class _BounceGrad(torch.autograd.Function):
+    """`_bounce` as an autograd node.  The forward is the kernels; the
+    backward recomputes the plain version under grad mode from the call's
+    own `need` and `occ` (so no shadow ray is traced again) and
+    differentiates that.  The recomputed values are the kernels' bits, so
+    the gradients are those of the plain version."""
+
+    @staticmethod
+    def forward(ctx, call: _Call, *inputs):
+        ctx.call = call
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        contrib, children = _bounce(call)
+        ctx.mark_non_differentiable(children[3])
+        return (contrib, *children)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        c = ctx.call
+        leaves = [None if t is None else
+                  t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        nh = len(_GRAD_HIT)
+        hit = c.hit.replace(**dict(zip(_GRAD_HIT, leaves[:nh])))
+        d_in, weight, rnd_coin, rnd_gi = leaves[nh:nh + 4]
+        scene = c.scene.replace(**dict(zip(_GRAD_SCENE, leaves[nh + 4:])))
+        with torch.enable_grad():
+            contrib, children = shade_reference(
+                scene, c.geom, hit, d_in, weight, c.cfg, c.accel, rnd_coin,
+                rnd_gi, lights=(c.need, c.occ))
+            # One scalar, sum(o * g), so that autograd.grad takes no
+            # grad_outputs (whose shape check imports sympy, seconds at
+            # the first call): each output still receives exactly 1 * g.
+            outs = [(o * g).sum() for o, g in zip((contrib, *children[:3]),
+                                                  grads)
+                    if g is not None and o.requires_grad]
+            total = outs[0] if outs else None
+            for o in outs[1:]:
+                total = total + o
+        wanted = [i for i, t in enumerate(leaves)
+                  if t is not None and t.requires_grad]
+        result = [None] * len(leaves)
+        if outs and wanted:
+            got = torch.autograd.grad(total, [leaves[i] for i in wanted],
+                                      allow_unused=True)
+            for i, g in zip(wanted, got):
+                result[i] = g
+        return (None, *result)
+
+
+def _bounce(call: _Call) -> Tuple[torch.Tensor, Tuple]:
+    """shade_factor, where a row needs light, and shade_bounce, where there
+    is a row: contrib (N, 3) and the children, as `shade` returns them."""
+    scene, hit, d_in, weight, cfg = (call.scene, call.hit, call.d_in,
+                                     call.weight, call.cfg)
+    n = weight.shape[0]
+    k = cfg.child_slots
+    gi = cfg.diffuse_reflection_ray_count
+    roulette = cfg.bounce_mode == "roulette"
+    dev = weight.device
+    f32, i32 = torch.float32, torch.int32
+    row3 = (n, 3)
+    lib = kernels.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    factor = None
+    m = call.need.numel()
+    if m:
+        nl = scene.light_pos.shape[0]
+        factor = torch.zeros_like(weight)
+        kernels.check(lib.srt_shade_factor(
+            call.need.data_ptr(), m, nl,
+            _rows(call.occ, torch.bool, (nl * m,), dev),
+            call.term.data_ptr(), factor.data_ptr(), stream), "shade_factor")
+        profiling.count("shade.launches")
+
+    contrib = torch.empty(row3, dtype=f32, device=dev)
+    child_o = torch.empty((n * k, 3), dtype=f32, device=dev)
+    child_d = torch.empty((n * k, 3), dtype=f32, device=dev)
+    child_w = torch.empty(n * k, dtype=f32, device=dev)
+    child_bg = torch.empty(n * k, dtype=torch.bool, device=dev)
+    if n:
+        x = scene.tex_tag.shape[0]
+        args = BounceArgs(
+            mask=_rows(hit.mask, torch.bool, (n,), dev),
+            tag=_rows(hit.mat_tag, i32, (n,), dev),
+            weight=_rows(weight, f32, (n,), dev),
+            d_in=_rows(d_in, f32, row3, dev),
+            position=_rows(hit.position, f32, row3, dev),
+            hit_n=_rows(hit.hit_n, f32, row3, dev),
+            face_n=_rows(hit.face_n, f32, row3, dev),
+            smooth=_rows(hit.smooth, torch.bool, (n,), dev),
+            ior=_rows(hit.ior, f32, (n,), dev),
+            albedo=_rows(hit.albedo, f32, row3, dev),
+            tex=_rows(hit.tex, i32, (n,), dev),
+            u=_rows(hit.u, f32, (n,), dev), v=_rows(hit.v, f32, (n,), dev),
+            w=_rows(hit.w, f32, (n,), dev),
+            uvs=_rows(hit.uvs, f32, (n, 3, 2), dev),
+            factor=None if factor is None else factor.data_ptr(),
+            rnd_coin=(_rows(call.rnd_coin, f32, (n,), dev) if roulette
+                      else None),
+            rnd_gi=(_rows(call.rnd_gi, f32, (n, gi, 2), dev) if gi > 0
+                    else None),
+            tex_tag=_rows(scene.tex_tag, i32, (x,), dev),
+            tex_color_a=_rows(scene.tex_color_a, f32, (x, 3), dev),
+            tex_color_b=_rows(scene.tex_color_b, f32, (x, 3), dev),
+            tex_param=_rows(scene.tex_param, f32, (x,), dev),
+            tex_offset=_rows(scene.tex_offset, i32, (x,), dev),
+            tex_width=_rows(scene.tex_width, i32, (x,), dev),
+            tex_height=_rows(scene.tex_height, i32, (x,), dev),
+            atlas=_rows(scene.atlas, f32, (scene.atlas.shape[0], 3), dev),
+            contrib=contrib.data_ptr(), child_o=child_o.data_ptr(),
+            child_d=child_d.data_ptr(), child_w=child_w.data_ptr(),
+            child_bg=child_bg.data_ptr(), n=n,
+            atlas_rows=scene.atlas.shape[0], gi=gi, k=k,
+            roulette=int(roulette),
+            # Python scalars as torch rounds them: a double to float; a
+            # division by (gi + 1) on the card multiplies by the float
+            # reciprocal.
+            direct_scale=np.float32(1.0 / (gi + 1)), gi_count=np.float32(gi),
+            gi_inv=np.float32(1.0) / np.float32(gi + 1),
+            pi=np.float32(math.pi), two_pi=np.float32(2.0 * math.pi),
+            reflection_bias=np.float32(cfg.reflection_bias),
+            refraction_bias=np.float32(cfg.refraction_bias))
+        kernels.check(lib.srt_shade_bounce(ctypes.byref(args), stream),
+                      "shade_bounce")
+        profiling.count("shade.launches")
+    return contrib, (child_o, child_d, child_w, child_bg)

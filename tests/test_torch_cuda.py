@@ -28,7 +28,8 @@ from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
 from simd_raytracer_tpu_torch.ops.shade import occluded
 from simd_raytracer_tpu_torch.utils import profiling
-from torch_scenes import SeededUniforms, grid_doc, mixed_doc
+from torch_scenes import (SeededUniforms, bitmap_scene_kwargs, grid_doc,
+                          mixed_doc, shade_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -946,3 +947,175 @@ def test_loss_and_grad_on_cuda_is_bitwise_reproducible(scene):
     assert torch.equal(l0, l1)
     for k in G.DIFF_PARAM_NAMES:
         assert torch.equal(g0[k], g1[k]), k
+
+
+# ---- shading: csrc/shade.cu against the plain torch version ----------------
+
+THREE_LIGHTS = ([[0.0, 2.0, -1.0], [2.0, 3.0, -2.0], [-2.0, 1.0, 0.0]],
+                [60.0, 40.0, 25.0])
+
+
+@pytest.fixture(scope="module")
+def shade_scene(card):
+    """The four-texture scene (albedo, edges, checker, bitmap) on the card
+    with its one light, and with three."""
+    from simd_raytracer_tpu_torch.models.scene import build_scene
+    s = build_scene(**bitmap_scene_kwargs(32, 32)).to(DEV)
+    pos, power = THREE_LIGHTS
+    s3 = s.replace(light_pos=torch.tensor(pos, device=DEV),
+                   light_intensity=torch.tensor(power, device=DEV))
+    return {1: s, 3: s3}, T.derive_geometry(s)
+
+
+def shade_args(scene, geom, cfg, n, seed, lit=True):
+    """The arguments of one shade call over `shade_rows` on the card; with
+    lit False no row is diffuse or textured, so no row needs light."""
+    from simd_raytracer_tpu_torch.ops.intersect import HitRecord
+    gi = cfg.diffuse_reflection_ray_count
+    rows = shade_rows(n, seed, int(scene.tex_tag.shape[0]), gi,
+                      scene.vertices.min(0).values.cpu().numpy(),
+                      scene.vertices.max(0).values.cpu().numpy())
+    if not lit:
+        rows["mat_tag"] = np.random.default_rng(seed).integers(
+            1, 4, n).astype(np.int32)
+    t = {k: torch.from_numpy(v).to(DEV) for k, v in rows.items()}
+    d_in, weight, coin, rnd_gi = (t.pop(k) for k in
+                                  ("d_in", "weight", "rnd_coin", "rnd_gi"))
+    return (scene, geom, HitRecord(**t), d_in, weight, cfg, None,
+            coin if cfg.bounce_mode == "roulette" else None,
+            rnd_gi if gi > 0 else None)
+
+
+def assert_same_bits(got, ref):
+    """contrib and every child tensor: same dtype, shape and bits."""
+    for a, b in zip([got[0], *got[1]], [ref[0], *ref[1]]):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.is_cuda
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b)
+        else:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 4096])
+@pytest.mark.parametrize("lights", [1, 3])
+@pytest.mark.parametrize("gi", [0, 1, 2, 3])
+@pytest.mark.parametrize("mode", ["split", "roulette"])
+def test_shade_kernels_match_plain_bitwise(shade_scene, mode, gi, lights, n):
+    """Every material tag, every texture kind (checker at negative UVs,
+    bitmap rows and columns clamped at both edges), misses and dead rays,
+    TIR and grazing refraction: contrib and every child tensor are the
+    plain version's bits, at 0, 1, a ragged 1000 and a whole 4096 rows."""
+    from simd_raytracer_tpu_torch.ops import shade as S
+    scenes, geom = shade_scene
+    cfg = T.RenderConfig(bounce_mode=mode, diffuse_reflection_ray_count=gi,
+                         intersector="jnp")
+    args = shade_args(scenes[lights], geom, cfg, n, seed=100 * gi + n)
+    with profiling.recording() as rec:
+        got = S.shade(*args)
+    assert rec.counts["shade.fused.calls"] == 1
+    assert rec.counts["shade.fused.rows"] == n
+    assert rec.counts["shade.plain.calls"] == 0
+    # shade_bounce over any row; shade_lights and shade_factor where a row
+    # needs light.
+    assert rec.counts["shade.launches"] == (
+        0 if n == 0 else 3 if "occlusion" in rec.spans else 1)
+    assert_same_bits(got, S.shade_reference(*args))
+
+
+@pytest.mark.parametrize("mode", ["split", "roulette"])
+def test_shade_kernels_with_no_row_needing_light(shade_scene, mode):
+    """Reflective, refractive and constant rows only: `need` is empty, no
+    shadow ray is traced, and the results are still the plain version's."""
+    from simd_raytracer_tpu_torch.ops import shade as S
+    scenes, geom = shade_scene
+    cfg = T.RenderConfig(bounce_mode=mode, diffuse_reflection_ray_count=1,
+                         intersector="jnp")
+    args = shade_args(scenes[3], geom, cfg, 1000, seed=7, lit=False)
+    with profiling.recording() as rec:
+        got = S.shade(*args)
+    assert "occlusion" not in rec.spans
+    assert rec.counts["shade.launches"] == 1
+    assert_same_bits(got, S.shade_reference(*args))
+
+
+def small_frame_cfgs():
+    """The two frame cells' configurations at 64 square: GI (split, one
+    diffuse ray, march occlusion, the fast select) and kd (spp 1, split,
+    fast occlusion, the kd-tree)."""
+    return {
+        "gi": T.RenderConfig(samples_per_pixel=2, max_ray_depth=4,
+                             diffuse_reflection_ray_count=1,
+                             bounce_mode="split", intersector="fast",
+                             occlusion_mode="march", chunk_size=1024),
+        "kd": T.RenderConfig(samples_per_pixel=1, max_ray_depth=5,
+                             bounce_mode="split", intersector="kdtree",
+                             occlusion_mode="fast", chunk_size=1024)}
+
+
+@pytest.mark.parametrize("which", ["gi", "kd"])
+def test_frames_through_the_shade_kernels_equal_plain(card, which,
+                                                      monkeypatch):
+    """A 64x64 GI frame and kd frame: through the kernels (every shade
+    call fused) bitwise equal to the same frame with the plain version
+    called directly, and to itself rendered again."""
+    from simd_raytracer_tpu_torch.ops import render, shade as S
+    s = T.parse_scene_dict(mixed_doc(64, 64, g=16, subdiv=2)).to(DEV)
+    cfg = small_frame_cfgs()[which]
+    accel = render.build_accel(s, cfg)
+    uniforms = lambda c: SeededUniforms(17, c)   # noqa: E731
+    with profiling.recording() as rec:
+        fused = T.render_frame(s, cfg, device=DEV, accel=accel,
+                               uniforms=uniforms)
+    assert rec.counts["shade.fused.calls"] == rec.spans["shade"][0] > 0
+    assert rec.counts["shade.plain.calls"] == 0
+    again = T.render_frame(s, cfg, device=DEV, accel=accel,
+                           uniforms=uniforms)
+    monkeypatch.setattr(render, "shade", S.shade_reference)
+    plain = T.render_frame(s, cfg, device=DEV, accel=accel,
+                           uniforms=uniforms)
+    assert torch.isfinite(fused).all() and float(fused.max()) > 0
+    assert torch.equal(fused, plain) and torch.equal(fused, again)
+
+
+def test_training_shades_through_the_kernels_with_plain_gradients(
+        scene, monkeypatch):
+    """An SGD step's inputs require grad, so every shade call runs the
+    kernels as the autograd node (`shade.fused.grad_calls` counts them),
+    and the loss and gradients are those of the plain version called
+    directly, bit for bit."""
+    from simd_raytracer_tpu_torch.ops import render, shade as S
+    s, _, _ = scene
+    cfg = T.RenderConfig(max_ray_depth=3, samples_per_pixel=2,
+                         bounce_mode="roulette", intersector="jnp",
+                         diffuse_reflection_ray_count=1)
+    n = 48 * 48 * 2
+    params, skeleton = G.split_params(s)
+
+    def step():
+        return G.loss_and_grad(
+            params, skeleton, cfg, torch.arange(n, device=DEV),
+            torch.full((n, 3), 0.1, device=DEV), SeededUniforms(8, 0))
+
+    with profiling.recording() as rec:
+        loss, grads = step()
+    calls = rec.spans["shade"][0]
+    assert rec.counts["shade.fused.grad_calls"] == calls > 0
+    assert rec.counts["shade.fused.calls"] == calls
+    assert rec.counts["shade.plain.calls"] == 0
+    monkeypatch.setattr(render, "shade", S.shade_reference)
+    loss_p, grads_p = step()
+    assert torch.equal(loss, loss_p)
+    for k in G.DIFF_PARAM_NAMES:
+        assert torch.equal(grads[k], grads_p[k]), k
+
+
+def test_shade_refuses_float64_on_the_card(shade_scene):
+    """csrc/shade.cu takes float32: a float64 call on the card is refused,
+    not shaded by another path."""
+    from simd_raytracer_tpu_torch.ops import shade as S
+    scenes, geom = shade_scene
+    cfg = T.RenderConfig(diffuse_reflection_ray_count=1, intersector="jnp")
+    args = list(shade_args(scenes[1], geom, cfg, 64, seed=3))
+    args[4] = args[4].double()
+    with pytest.raises(ValueError, match="float32"):
+        S.shade(*args)

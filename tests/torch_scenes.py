@@ -256,3 +256,43 @@ def bitmap_scene_kwargs(h: int = 256, w: int = 256, seed: int = 0) -> dict:
         cam_pos=(0.0, 0.0, 0.0), cam_mat=np.eye(3, dtype=np.float32),
         background=(0.05, 0.05, 0.1), height=h, width=w, bucket_size=32,
     )
+
+
+def shade_rows(n: int, seed: int, n_tex: int, gi: int, lo, hi) -> dict:
+    """Random inputs of one shade call over n rows, as NumPy arrays named
+    by the HitRecord fields (plus d_in, weight, rnd_coin, rnd_gi): every
+    material tag, any of n_tex textures, misses and dead rays among them,
+    unnormalised incoming directions, grazing and total-internal-reflection
+    refractions (ior 1 to 2.5), corner UVs in [-3, 3) (negative checker
+    coordinates, bitmap rows and columns clamped at both edges), positions
+    in the box [lo, hi)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def unit(k):
+        v = rng.normal(size=(k, 3))
+        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(f32)
+
+    u = rng.random(n, dtype=f32)
+    v = (rng.random(n, dtype=f32) * (1 - u)).astype(f32)
+    weight = rng.random(n, dtype=f32)
+    weight[rng.random(n) < 0.1] = 0.0
+    d_in = unit(n) * rng.uniform(0.5, 2.0, (n, 1)).astype(f32)
+    return {
+        "mask": rng.random(n) < 0.85,
+        "idx": np.zeros(n, np.int32),
+        "t": rng.uniform(0.1, 20.0, n).astype(f32),
+        "u": u, "v": v, "w": (f32(1) - u - v).astype(f32),
+        "position": rng.uniform(lo, hi, (n, 3)).astype(f32),
+        "hit_n": unit(n), "face_n": unit(n),
+        "uvs": rng.uniform(-3.0, 3.0, (n, 3, 2)).astype(f32),
+        "mat_tag": rng.integers(0, 5, n).astype(np.int32),
+        "albedo": rng.random((n, 3), dtype=f32),
+        "ior": rng.uniform(1.0, 2.5, n).astype(f32),
+        "smooth": rng.random(n) < 0.5,
+        "tex": rng.integers(0, n_tex, n).astype(np.int32),
+        "mesh_idx": np.zeros(n, np.int32),
+        "d_in": d_in.astype(f32), "weight": weight,
+        "rnd_coin": rng.random(n, dtype=f32),
+        "rnd_gi": rng.random((n, gi, 2), dtype=f32),
+    }
