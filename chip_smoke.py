@@ -219,6 +219,16 @@ SWEEP_ARGS = ("count", "order", "tnear", "o", "d", "tmax", "tri_soa", "ids",
               "mask")
 
 
+def bound_table(intersector: str, geom):
+    """The table the render path's select for `intersector` ("jnp" or
+    "fast") reads on `geom`, as its binding holds it (ops/intersect.py::
+    make_select_fn): the brute-force kernel's packed triangles or the fast
+    select's FastTable."""
+    from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
+    return make_select_fn(intersector, geom=geom).keywords[
+        {"jnp": "tri_soa", "fast": "table"}[intersector]]
+
+
 def report(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields), flush=True)
 
@@ -607,6 +617,8 @@ def sweep_call(label, a):
     """Hold one captured sweep call exactly against the plain version;
     time it; count its bound per ray from the plain walk's final best t
     (ops/intersect_sweep.py::sweep_work_pairs)."""
+    from simd_raytracer_tpu_torch import kernels
+    from simd_raytracer_tpu_torch.accel.sweep import R_TILE
     from simd_raytracer_tpu_torch.ops import intersect_sweep as S
     args = tuple(a.values())
     exact(SWEEP, label, S.sweep_select(*args), S.sweep_select_reference(*args))
@@ -627,7 +639,8 @@ def sweep_call(label, a):
     b_ms, by = bound(pairs, nbytes(*args) + rp * 5)
     return dict(kind=ray_kind(a["any_hit"], a["cull"]), rays=rp, tiles=p,
                 slices_scheduled_per_tile=float(a["count"].float().mean()),
-                split=S.sweep_split(p, s, torch.cuda.get_device_properties(0)
+                split=kernels.split(p * (R_TILE // S.GROUP), s,
+                                    torch.cuda.get_device_properties(0)
                                     .multi_processor_count),
                 ms=ms, runs_ms=runs, plain_ms=plain_ms, pairs_needed=pairs,
                 bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
@@ -639,6 +652,7 @@ def k1_call(label, a):
     """The same for one captured brute-force call.  Pairs: every ray
     against every unmasked triangle; for any-hit, a hit ray needs at least
     one pair and a miss every one."""
+    from simd_raytracer_tpu_torch import kernels
     from simd_raytracer_tpu_torch.ops import intersect_brute as B
     fn_args = dict(a)
     exact(K1, label, B.mt_select_brute(**fn_args),
@@ -659,9 +673,10 @@ def k1_call(label, a):
     b_ms, by = bound(pairs, 33 * r + 40 * int(a["v0"].shape[0]))
     return dict(kind=ray_kind(a["any_hit"], a["cull"]), rays=r,
                 triangles=int(a["v0"].shape[0]), live_triangles=live,
-                split=B.k1_split(r, int(a["v0"].shape[0]),
-                                 torch.cuda.get_device_properties(0)
-                                 .multi_processor_count),
+                split=kernels.split(-(-r // B.RAY_BLOCK),
+                                    -(-int(a["v0"].shape[0]) // B.TRI_TILE),
+                                    torch.cuda.get_device_properties(0)
+                                    .multi_processor_count),
                 ms=ms, runs_ms=runs, plain_ms=plain_ms, pairs_needed=pairs,
                 bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
                 exact=True)
@@ -700,7 +715,7 @@ def phase_timed(frames, full, accel):
     sw.update(eps=EPS, cull=True, any_hit=False)
     k1 = dict(o=o, d=d, v0=geom.v0, e1=geom.e1, e2=geom.e2, eps=EPS,
               cull=True, tri_mask=geom.tri_valid, t_max=None, any_hit=False,
-              tri_soa=geom.tri_soa)
+              tri_soa=bound_table("jnp", geom))
     calls = {
         "sweep primary chunk (headline)": sweep_call("primary chunk", sw),
         "sweep full-reach secondary (GI frame)": sweep_call(
@@ -1159,9 +1174,12 @@ def fast_vs_jnp(frame, cfg, got, ref):
         half = torch.full(px.shape, 0.5, device=DEV)
         o, d = primary_rays(frame, cfg.fov_degrees, px, py, half, half)
         args = (o, d, geom.v0, geom.e1, geom.e2, EPS, True, geom.tri_valid)
-        sides = {"fast": F.mt_select_fast(*args, table=F.table_of(geom)),
-                 "jnp": mt_select_brute(*args, tri_soa=geom.tri_soa)}
-        plain = F.mt_select_fast_reference(*args, table=F.table_of(geom))
+        sides = {"fast": F.mt_select_fast(
+                     *args, table=bound_table("fast", geom)),
+                 "jnp": mt_select_brute(
+                     *args, tri_soa=bound_table("jnp", geom))}
+        plain = F.mt_select_fast_reference(
+            *args, table=bound_table("fast", geom))
         refined = {}
         for name, (idx, _) in sides.items():
             g = idx.long()
@@ -1248,22 +1266,23 @@ def fast_stage_pairs(args, hit) -> list:
 
 def fast_args(a, geom) -> dict:
     """mt_select_fast's arguments for a captured call, reading the frame's
-    table (table_of)."""
+    table (bound_table)."""
     from simd_raytracer_tpu_torch.ops import intersect_fast as F
     return dict(o=a["o"], d=a["d"], v0=geom.v0, e1=geom.e1, e2=geom.e2,
                 eps=a["eps"], cull=a["cull"], tri_mask=a["tri_mask"],
                 t_max=a["t_max"], any_hit=a["any_hit"],
-                table=F.table_of(geom))
+                table=bound_table("fast", geom))
 
 
 def fast_call(label, kind, a, geom):
     """Hold the fast kernel on one call exactly against its plain version
-    on the same CUDA tensors, both reading the frame's table (table_of);
+    on the same CUDA tensors, both reading the frame's table (bound_table);
     time both and K1 on the same call (the kernel also by the profiler,
     without its wrapper's host work: kernel_ms).  Bound: the operations
     the call's pairs need, each pair charged FAST_STAGE_OPS for the tests
     it reaches (fast_stage_pairs), over 67 TFLOP/s, or the bytes the call
     must move."""
+    from simd_raytracer_tpu_torch import kernels
     from simd_raytracer_tpu_torch.ops import intersect_fast as F
     from simd_raytracer_tpu_torch.ops.intersect_brute import mt_select_brute
     args = fast_args(a, geom)
@@ -1280,14 +1299,17 @@ def fast_call(label, kind, a, geom):
     own_ms, seen = kernel_ms(lambda: F.mt_select_fast(**args),
                              "fast_select_kernel", 5)
     k1 = {k: v for k, v in args.items() if k != "table"}
-    k1_ms = event_ms(lambda: mt_select_brute(**k1, tri_soa=geom.tri_soa), 5)
+    k1_ms = event_ms(lambda: mt_select_brute(
+        **k1, tri_soa=bound_table("jnp", geom)), 5)
     # o, d and t_max in, idx and hit out: 33 bytes a ray; the table's 16
     # constants and the mask's byte: 65 bytes a triangle.
     b_ms, by = bound(ops, 33 * r + 65 * t, 1)
     return dict(kind=kind, rays=r, hits=hits, triangles=t,
                 live_triangles=live, width=F.FAST_WIDTH,
-                split=F.fast_split(r, t, torch.cuda.get_device_properties(0)
-                                   .multi_processor_count),
+                split=kernels.split(
+                    -(-r // (F.FAST_THREADS * F.FAST_WIDTH)),
+                    -(-t // F.FAST_TILE),
+                    torch.cuda.get_device_properties(0).multi_processor_count),
                 ms=ms, runs_ms=runs, kernel_ms=own_ms,
                 kernel_launches_profiled=seen, plain_ms=plain_ms,
                 pairs_reaching_each_test=stages, operations=ops,
@@ -1401,7 +1423,8 @@ def phase_mxu(small, full):
     o, d = camera_rays(frame, refexact_cfg("mxu"), chunk)
     args = (o, d, geom.v0, geom.e1, geom.e2, EPS, True, geom.tri_valid)
     idx, hit = M.mt_select_mxu(*args)
-    k1_idx, k1_hit = mt_select_brute(*args, tri_soa=geom.tri_soa)
+    k1_idx, k1_hit = mt_select_brute(*args,
+                                     tri_soa=bound_table("jnp", geom))
     agree = float((hit == k1_hit).float().mean())
     both = hit & k1_hit
     idx_agree = float((idx[both] == k1_idx[both]).float().mean())
@@ -1423,7 +1446,8 @@ def phase_mxu(small, full):
 
     ms = event_ms(lambda: M.mt_select_mxu(*args), 2)
     matmul_ms = event_ms(products, 2)
-    k1_ms = event_ms(lambda: mt_select_brute(*args, tri_soa=geom.tri_soa), 5)
+    k1_ms = event_ms(lambda: mt_select_brute(
+        *args, tri_soa=bound_table("jnp", geom)), 5)
     # The products: 4 numerators x 10 multiply-adds a pair (80 float
     # operations), features and weights read once, the (R, 4T) float32
     # numerators written once.  The select's bound counts those operations
@@ -1543,7 +1567,7 @@ def phase_kd(scene):
     from simd_raytracer_tpu_torch.accel.build import (KDTREE_FIELDS,
                                                       build_kdtree_for_scene)
     from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
-    from simd_raytracer_tpu_torch.ops import intersect as I
+    from simd_raytracer_tpu_torch.ops import intersect_kd as KDM
     from simd_raytracer_tpu_torch.ops.intersect_brute import mt_select_brute
     from simd_raytracer_tpu_torch.ops.intersect_kd import (kd_select_cuda,
                                                            pack_kd)
@@ -1582,7 +1606,7 @@ def phase_kd(scene):
     frame = scene.replace(height=FRAME, width=FRAME)
     kept = capture(lambda: T.render_frame(
         frame, kd_config(), device=DEV, accel=tree,
-        scheduling=SchedulingType.BUCKET_TILES), I, "_kd_window_select",
+        scheduling=SchedulingType.BUCKET_TILES), KDM, "kd_window_select",
         kind_of)
     # The same chunk with its rays in a seeded random order: the worst
     # case for a block's rays sharing leaves.
@@ -1600,7 +1624,7 @@ def phase_kd(scene):
         calls[what]["k1_ms_same_call"] = event_ms(lambda: mt_select_brute(
             a["o"], a["d"], a["v0"], a["e1"], a["e2"], EPS, a["cull"],
             a["tri_mask"], a.get("t_max"), a.get("any_hit", False),
-            tri_soa=geom.tri_soa), 5)
+            tri_soa=bound_table("jnp", geom)), 5)
     more = {}
     if "--kd-shapes" in sys.argv[1:]:
         more["shape_ms"] = kd_shapes(inputs, tree, pack)
@@ -1611,7 +1635,7 @@ def phase_kd(scene):
     print(f"depth-14 kd-tree: {deep.num_nodes} nodes", flush=True)
     deep_shadow = capture(lambda: T.render_frame(
         frame, kd_config(), device=DEV, accel=deep,
-        scheduling=SchedulingType.BUCKET_TILES), I, "_kd_window_select",
+        scheduling=SchedulingType.BUCKET_TILES), KDM, "kd_window_select",
         kind_of)["shadow"]
     deep_pack = pack_kd(deep, geom.v0, geom.e1, geom.e2)
     for what, a in (("kd primary chunk (kd frame), depth-14 tree", primary),

@@ -121,7 +121,9 @@ def main() -> int:
             r, t = int(args["o"].shape[0]), int(geom.v0.shape[0])
             row = {"call": name, "rays": r,
                    "live_triangles": int(args["tri_mask"].sum()),
-                   "split": F.fast_split(r, t, kernels.sm_count(0)),
+                   "split": kernels.split(
+                       -(-r // (F.FAST_THREADS * F.FAST_WIDTH)),
+                       -(-t // F.FAST_TILE), kernels.sm_count(0)),
                    "earlier_ms": [], "ms": []}
             for side in ("earlier", "current", "current", "earlier"):
                 t0 = time.time()
@@ -134,7 +136,8 @@ def main() -> int:
                     C.kernel_ms(sides[side], KERNEL, REPS))
             k1 = {k: v for k, v in args.items() if k != "table"}
             row["k1_ms"] = C.event_ms(
-                lambda: mt_select_brute(**k1, tri_soa=geom.tri_soa), REPS)
+                lambda: mt_select_brute(
+                    **k1, tri_soa=C.bound_table("jnp", geom)), REPS)
             results[name] = row
     finally:
         time.sleep(0.3)

@@ -63,7 +63,7 @@ def main(argv=None) -> int:
 
     from simd_raytracer_tpu_torch import (RenderConfig, parse_scene_file,
                                           render_frame, save_ppm)
-    from simd_raytracer_tpu_torch.ops.render import build_accel
+    from simd_raytracer_tpu_torch.ops.render import build_accel, needs_accel
     from simd_raytracer_tpu_torch.utils.profiling import (PhaseTimer,
                                                           format_record,
                                                           recording)
@@ -82,7 +82,7 @@ def main(argv=None) -> int:
         occlusion_mode=args.occlusion, ray_order=args.ray_order)
 
     accel = None
-    if args.intersector in ("kdtree", "sweep"):
+    if needs_accel(cfg):
         with timer.phase("accel_build"):
             accel = build_accel(scene, cfg)
 

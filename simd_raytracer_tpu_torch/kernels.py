@@ -32,12 +32,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Blocks of 128 rays per SM a select call aims for when it splits its work
-# over a second grid dimension (ops/intersect_brute.py::k1_split,
-# ops/intersect_sweep.py::sweep_split).  An SM runs at most 16 such blocks
+# over a second grid dimension (`split`).  An SM runs at most 16 such blocks
 # at once (10 of the sweep's, by shared memory); more, smaller shares
 # balance the blocks' early exits and uneven work.  `chip_smoke.py
 # --fill-targets` times the two largest calls at 16, 32 and 64.
 BLOCKS_PER_SM = 32
+
+
+def split(groups: int, steps: int, n_sms: int) -> int:
+    """Blocks per ray group of a select call of `groups` groups (a block
+    each unsplit) sharing `steps` units of work (triangle tiles, schedule
+    steps) on n_sms SMs: enough for BLOCKS_PER_SM blocks an SM, 1 when the
+    groups alone do that, at most `steps` and a grid dimension's 65,535."""
+    want = -(-BLOCKS_PER_SM * n_sms // max(groups, 1))
+    return max(1, min(want, steps, 65535))
 
 _lock = threading.Lock()
 _lib = None

@@ -109,9 +109,10 @@ class Geometry(TensorStruct):
     tri_mesh: torch.Tensor          # (T,) int32
     tri_valid: torch.Tensor         # (T,) bool
     tri_transmissive: torch.Tensor  # (T,) bool, material is refractive
-    tri_soa: torch.Tensor           # (9, T) float32 v0, e1, e2 rows: the
-                                    # brute-force kernel's layout, packed
-                                    # once per frame
+    # The selects bound to these triangles (ops/intersect.py::
+    # make_select_fn); a Geometry made from this one starts with none.
+    selects: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
 
 SCENE_TENSOR_FIELDS = tuple(
@@ -190,8 +191,7 @@ def derive_geometry(scene: Scene) -> Geometry:
     return Geometry(v0=p0, e1=e1, e2=e2, face_n=face_n, vn=vn, uv=scene.uv,
                     tri_mat=scene.tri_mat, tri_mesh=scene.tri_mesh,
                     tri_valid=scene.tri_valid,
-                    tri_transmissive=tri_transmissive,
-                    tri_soa=pack_triangles(p0, e1, e2).detach())
+                    tri_transmissive=tri_transmissive)
 
 
 def scene_from_arrays(arrays, *, height: int, width: int, bucket_size: int,

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
 from typing import Optional
 
 import torch
@@ -183,70 +184,43 @@ class HitRecord(TensorStruct):
     mesh_idx: torch.Tensor   # (N,) int32
 
 
+# RenderConfig.intersector -> the module whose `bind(accel, geom)` builds
+# the tables that backend's select reads and binds the select to them.
+BACKENDS = {"jnp": "intersect_brute", "pallas": "intersect_brute",
+            "fast": "intersect_fast", "mxu": "intersect_mxu",
+            "kdtree": "intersect_kd", "sweep": "intersect_sweep"}
+
+
 def make_select_fn(intersector: str, accel=None,
                    geom: Optional[Geometry] = None):
     """Resolve a RenderConfig.intersector name to a select function.
 
-    "jnp" and "pallas" both resolve to the brute-force select, which runs
-    the CUDA kernel on a GPU and its plain version on the CPU, bound to
-    `geom`'s packed triangles when given; "sweep" binds the SweepData
-    given as `accel`; "kdtree" the KdTree given as `accel` (the kd kernel
-    on a GPU, bound to the pack of the tree and `geom`'s triangles, built
-    once for the pair); "fast" is the division-free bilinear select (its
-    CUDA kernel on a GPU), bound to `geom`'s table of per-triangle
-    constants, built once for the Geometry object; "mxu" the same
-    numerators as one float32 matrix product a block (torch.matmul) and a
-    plain torch epilogue."""
-    if intersector in ("jnp", "pallas"):
-        from .intersect_brute import mt_select_brute
-        if geom is None:
-            return mt_select_brute
-        return functools.partial(mt_select_brute, tri_soa=geom.tri_soa)
-    if intersector == "sweep":
-        if accel is None:
-            raise ValueError("intersector='sweep' needs an accel: build one "
-                             "with accel.sweep.build_sweep_for_scene")
-        from .intersect_sweep import make_sweep_select
-        return make_sweep_select(accel)
-    if intersector == "fast":
-        from .intersect_fast import mt_select_fast, table_of
-        if geom is None:
-            return mt_select_fast
-        return functools.partial(mt_select_fast, table=table_of(geom))
-    if intersector == "mxu":
-        from .intersect_mxu import mt_select_mxu
-        return mt_select_mxu
-    if intersector == "kdtree":
-        if accel is None:
-            raise ValueError("intersector='kdtree' needs an accel: build one "
-                             "with accel.build.build_kdtree_for_scene")
-        pack = None
-        if geom is not None:
-            from .intersect_kd import packed
-            pack = packed(accel, geom)
-        return functools.partial(_kd_window_select, tree=accel, pack=pack)
-    raise ValueError(intersector)
+    "jnp" and "pallas" resolve to the brute-force select, "fast" to the
+    division-free bilinear one, "mxu" to its numerators as matrix
+    products, "kdtree" and "sweep" to the walks of the KdTree or SweepData
+    given as `accel`.  The backend's `bind` builds the tables its select
+    reads from `geom`'s triangles (without a geom, each call builds them)
+    and the bound select is kept on `geom` for the accel object: the
+    selects of a frame or train step share their Geometry object, so they
+    share one binding.  A Geometry made by .to(), .map() or .replace()
+    starts with none."""
+    if geom is None:
+        return _bind(intersector, accel, None)
+    key = (intersector, id(accel))
+    entry = geom.selects.get(key)
+    if entry is None:
+        # The entry holds `accel`, so no other object takes its id while
+        # the entry lives.
+        entry = geom.selects[key] = (accel, _bind(intersector, accel, geom))
+    return entry[1]
 
 
-@counted_select
-def _kd_window_select(o, d, v0, e1, e2, eps, cull, tri_mask=None,
-                      t_max=None, any_hit=False, *, tree, pack=None):
-    """The kd select under the common contract, as the JAX package
-    emulates it: the closest hit first; with a window, the winner's
-    refined t decides `hit &= t <= t_max` (the window is not applied
-    inside the walk); with any_hit, idx is zeros.  pack: the kernel's
-    packed tree and triangles (intersect_kd.packed), None to pack here.
-    While tracing, the kernel adds its work to the record's kd counter."""
-    from .intersect_kd import kd_select_cuda
-    idx, hit = kd_select_cuda(o, d, v0, e1, e2, eps, cull, tri_mask, tree,
-                              pack, counter=profiling.kd_counter(o.device))
-    if t_max is not None:
-        gidx = idx.long()
-        t, _, _ = mt_refine(o, d, v0[gidx], e1[gidx], e2[gidx], eps)
-        hit = hit & (t <= t_max)
-    if any_hit:
-        idx = torch.zeros_like(idx)
-    return idx, hit
+def _bind(intersector: str, accel, geom: Optional[Geometry]):
+    if intersector not in BACKENDS:
+        raise ValueError(intersector)
+    backend = importlib.import_module(f"{__package__}.{BACKENDS[intersector]}")
+    with torch.no_grad():               # the tables are constants
+        return backend.bind(accel, geom)
 
 
 @profiling.spanned("trace")

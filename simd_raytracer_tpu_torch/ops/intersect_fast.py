@@ -15,9 +15,9 @@ Rays and triangles are re-centred on the mean of v0 first: the
 factorisation is translation invariant, and centring keeps the o x d
 cancellation at scene scale wherever the scene sits.  The per-triangle
 constants form a `FastTable`, built by `fast_table` with the same torch
-ops on the device of the triangles, once per frame through `table_of`
-(one Geometry object per frame, as `Geometry.tri_soa` is); the kernel and
-the plain version read the same table, so they share the centre's bits.
+ops on the device of the triangles, once per frame by `bind` (the select
+bound to a frame's Geometry object); the kernel and the plain version
+read the same table, so they share the centre's bits.
 The table is one (T padded to FAST_TILE, 16) array, a triangle's 16
 constants in a row in the order the kernel's tests use them, so that the
 kernel reads a row as four 16-byte words; the plain version reads its
@@ -32,7 +32,7 @@ for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
-import weakref
+import functools
 from typing import Optional
 
 import torch
@@ -41,8 +41,8 @@ from .. import kernels
 from ..models.scene import cross3
 from ..utils import profiling
 from .intersect import BIG, _block, counted_select
-from .intersect_brute import k1_split
-from .select_keys import check_eps, decode_any, decode_closest, seed_keys
+from .select_keys import (check_eps, check_table, decode_any, decode_closest,
+                          launch, seed_keys)
 
 # Columns of FastTable.pack (rows of FastTable.soa), in the order the
 # kernel's tests read them as four float4 words: n (3) and v0 . n (the cull
@@ -99,26 +99,6 @@ def fast_table(v0, e1, e2, dtype=None) -> FastTable:
                           cross3(e1, v0), e1], dim=1)
     profiling.count("build.table")
     return FastTable(center=center, pack=pack, source=src)
-
-
-# The last (geometry, table): the selects of one frame or train step share
-# their Geometry object, so they build one table.  A weak reference: the
-# cache keeps the geometry alive no longer than its frame.
-_last = (lambda: None, None)
-
-
-def table_of(geom) -> FastTable:
-    """fast_table of `geom`'s triangles, in float32 on a CUDA device (the
-    kernel's type) and in the geometry's dtype on the CPU, built once for
-    the Geometry object."""
-    global _last
-    g, table = _last
-    if g() is geom:
-        return table
-    table = fast_table(geom.v0, geom.e1, geom.e2,
-                       torch.float32 if geom.v0.is_cuda else None)
-    _last = (weakref.ref(geom), table)
-    return table
 
 
 def _checked_table(table, v0, e1, e2, dtype) -> FastTable:
@@ -209,17 +189,6 @@ def mt_select_fast_reference(o, d, v0, e1, e2, eps: float, cull: bool,
     return best_i.to(torch.int32), best_t < BIG
 
 
-def fast_split(n_rays: int, n_tris: int, n_sms: int) -> int:
-    """The fast kernel's blocks per FAST_THREADS * FAST_WIDTH rays, each
-    taking an even share of the FAST_TILE-triangle tiles: k1_split's rule
-    over the fast kernel's widths, so a small call (a march hop) still
-    fills the card through the triangle split, down to one tile a block
-    (blocks of at least two or four tiles made the march call's kernel
-    19% and 81% slower, PERF.md)."""
-    return k1_split(n_rays, n_tris, n_sms, FAST_THREADS * FAST_WIDTH,
-                    FAST_TILE)
-
-
 @counted_select
 def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
                    tri_mask: Optional[torch.Tensor] = None,
@@ -229,45 +198,49 @@ def mt_select_fast(o, d, v0, e1, e2, eps: float, cull: bool,
     """The fast select under the contract of `ops.intersect.mt_select` ->
     (idx (R,) int32, hit (R,) bool): the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  table: `fast_table(v0, e1, e2)` where
-    the caller holds it (`table_of(geom)`), built here otherwise.  eps
-    must be >= 0 on every device (the key merge needs t >= 0)."""
+    the caller holds it (the select `bind` makes), built here otherwise.
+    eps must be >= 0 on every device (the key merge needs t >= 0).
+
+    The kernel takes FAST_THREADS * FAST_WIDTH rays a block and splits
+    the FAST_TILE-triangle tiles evenly over `kernels.split` blocks per
+    ray block, so a small call (a march hop) still fills the card, down to
+    one tile a block (blocks of at least two or four tiles made the march
+    call's kernel 19% and 81% slower, PERF.md)."""
     check_eps(eps)
     if not o.is_cuda:
         return mt_select_fast_reference(o, d, v0, e1, e2, eps, cull,
                                         tri_mask, t_max, any_hit, table)
     r, t = o.shape[0], v0.shape[0]
-    for name, x, rows in (("o", o, r), ("d", d, r), ("v0", v0, t),
-                          ("e1", e1, t), ("e2", e2, t)):
-        if x.device != o.device or x.shape != (rows, 3):
-            raise ValueError(f"{name}: expected ({rows}, 3) on {o.device}, "
-                             f"got {tuple(x.shape)} on {x.device}")
     tab = _checked_table(table, v0, e1, e2, torch.float32)
-    if tab.pack.data_ptr() % 16 or not tab.pack.is_contiguous():
-        raise ValueError("fast select: the table must be contiguous and "
-                         "16-byte aligned (the kernel copies float4 words)")
-    o32 = o.float().contiguous()
-    d32 = d.float().contiguous()
-    # A bool mask is read in place, one byte a triangle; None: all live.
-    mask = (None if tri_mask is None else
-            tri_mask.to(device=o.device, dtype=torch.bool).contiguous())
-    tmax = (None if t_max is None else
-            t_max.to(device=o.device, dtype=torch.float32).contiguous())
-    shapes = [None if x is None else tuple(x.shape) for x in (mask, tmax)]
-    if shapes[0] not in (None, (t,)) or shapes[1] not in (None, (r,)):
-        raise ValueError(f"tri_mask {shapes[0]} / t_max {shapes[1]} do not "
-                         f"match T={t}, R={r}")
+    tiles = -(-t // FAST_TILE)
+    check_table("table", tab.pack, (tiles * FAST_TILE, ROWS), torch.float32,
+                o.device)
+    if tab.pack.data_ptr() % 16:
+        raise ValueError("fast select: the table must be 16-byte aligned "
+                         "(the kernel copies float4 words)")
     keys = seed_keys(torch.full((r,), BIG, dtype=torch.float32,
                                 device=o.device))
-    if r:
-        rc = kernels.library().srt_fast_select(
-            o32.data_ptr(), d32.data_ptr(), tab.center.data_ptr(),
-            None if tmax is None else tmax.data_ptr(), tab.pack.data_ptr(),
-            None if mask is None else mask.data_ptr(), r, t,
-            fast_split(r, t, kernels.sm_count(o.device.index or 0)),
-            float(eps), int(bool(cull)), int(bool(any_hit)), keys.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
-        kernels.check(rc, "fast_select")
-        profiling.count("select.launches.fast")
+    # A bool mask is read in place, one byte a triangle; None: all live.
+    launch("fast", o, d, (v0, e1, e2), tri_mask, t_max, torch.bool,
+           lambda o32, d32, mask, tmax: (
+               o32.data_ptr(), d32.data_ptr(), tab.center.data_ptr(),
+               None if tmax is None else tmax.data_ptr(), tab.pack.data_ptr(),
+               None if mask is None else mask.data_ptr(), r, t,
+               kernels.split(-(-r // (FAST_THREADS * FAST_WIDTH)), tiles,
+                             kernels.sm_count(o.device.index or 0)),
+               float(eps), int(bool(cull)), int(bool(any_hit)),
+               keys.data_ptr()))
     if any_hit:
         return decode_any(keys)
     return decode_closest(keys)
+
+
+def bind(accel, geom):
+    """The fast select, bound to the fast_table of `geom`'s triangles when
+    given: float32 on a CUDA device (the kernel's type), the geometry's
+    dtype on the CPU (the accelerator is not read)."""
+    if geom is None:
+        return mt_select_fast
+    return functools.partial(mt_select_fast, table=fast_table(
+        geom.v0, geom.e1, geom.e2,
+        torch.float32 if geom.v0.is_cuda else None))

@@ -7,24 +7,25 @@ against a leaf-packed soup staged in shared memory (`pack_kd`), giving the
 same (idx, hit): the closest accepted triangle, lowest id on exact t ties,
 idx 0 on a miss.  It reads the node records from device memory, so it
 walks a tree of any size the stack allows.  It takes no window:
-`ops/intersect.py::make_select_fn("kdtree")` emulates t_max and any-hit
-around it, as the JAX package does, and binds the pack of its geometry
-once (`packed`).
+`kd_window_select` emulates t_max and any-hit around it, as the JAX
+package does, and `bind` binds it to the pack of a tree and a frame's
+geometry.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import weakref
+import functools
 from typing import Optional
 
 import torch
 
-from .. import kernels
 from ..accel.build import KdTree
 from ..accel.traverse import check_depth, kd_select
 from ..models.scene import TensorStruct
 from ..utils import profiling
+from .intersect import counted_select, mt_refine
+from .select_keys import check_table, launch
 
 # Triangles per staged tile: kTile of csrc/kd_select.cu.
 KD_TILE = 128
@@ -84,24 +85,6 @@ def pack_kd(tree: KdTree, v0, e1, e2) -> KdPack:
         num_tris=int(v0.shape[0]))
 
 
-# The last (tree, geometry, pack): the selects of one frame or train step
-# share their tree and Geometry objects, so they pack once.  Weak
-# references: the cache keeps neither alive.
-_last = (lambda: None, lambda: None, None)
-
-
-def packed(tree: KdTree, geom) -> KdPack:
-    """pack_kd of `tree` and `geom`'s triangles, built once for the pair of
-    objects and reused while both live."""
-    global _last
-    t, g, pack = _last
-    if t() is tree and g() is geom:
-        return pack
-    pack = pack_kd(tree, geom.v0, geom.e1, geom.e2)
-    _last = (weakref.ref(tree), weakref.ref(geom), pack)
-    return pack
-
-
 def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
                    tri_mask: Optional[torch.Tensor], tree: KdTree,
                    pack: Optional[KdPack] = None,
@@ -120,49 +103,65 @@ def kd_select_cuda(o, d, v0, e1, e2, eps: float, cull: bool,
         return kd_select(o, d, v0, e1, e2, eps, cull, tri_mask, tree)
     check_depth(tree)
     r, t = o.shape[0], v0.shape[0]
-    for name, x, rows in (("o", o, r), ("d", d, r), ("v0", v0, t),
-                          ("e1", e1, t), ("e2", e2, t)):
-        if x.device != o.device or tuple(x.shape) != (rows, 3):
-            raise ValueError(f"{name}: expected ({rows}, 3) on {o.device}, "
-                             f"got {tuple(x.shape)} on {x.device}")
     for name in ("node_min", "node_max", "child0", "child1", "leaf_id",
                  "leaf_tris"):
         x = getattr(tree, name)
         if x.device != o.device:
             raise ValueError(f"tree.{name} is on {x.device}, the rays on "
                              f"{o.device}: move the tree with .to(device)")
-    n_nodes = tree.num_nodes
     if pack is None:
         pack = pack_kd(tree, v0, e1, e2)
-    if pack.num_tris != t or pack.box.shape[0] != n_nodes or \
-            pack.tri.device != o.device:
-        raise ValueError(f"the pack ({pack.num_tris} triangles, "
-                         f"{pack.box.shape[0]} nodes, on {pack.tri.device}) "
-                         f"does not match the call ({t}, {n_nodes}, "
-                         f"{o.device})")
+    check_table("pack.box", pack.box, (tree.num_nodes, 6), torch.float32,
+                o.device)
+    if pack.num_tris != t:
+        raise ValueError(f"the pack holds {pack.num_tris} triangles, the "
+                         f"call {t}")
     if counter is not None and (counter.dtype != torch.int64 or
                                 counter.shape != (3,) or
                                 counter.device != o.device):
         raise ValueError("counter: expected an int64 (3,) tensor on "
                          f"{o.device}")
-    o32 = o.float().contiguous()
-    d32 = d.float().contiguous()
-    mask = (torch.ones(t, dtype=torch.int32, device=o.device)
-            if tri_mask is None else
-            tri_mask.to(device=o.device, dtype=torch.int32).contiguous())
-    if mask.shape != (t,):
-        raise ValueError(f"tri_mask {tuple(mask.shape)} does not match T={t}")
+    if tri_mask is None:
+        tri_mask = torch.ones(t, dtype=torch.int32, device=o.device)
     idx = torch.zeros(r, dtype=torch.int32, device=o.device)
     hit = torch.zeros(r, dtype=torch.bool, device=o.device)
-    if r:
-        rc = kernels.library().srt_kd_select(
-            o32.data_ptr(), d32.data_ptr(), pack.tri.data_ptr(),
-            pack.ids.data_ptr(), mask.data_ptr(), pack.leaf_tile.data_ptr(),
-            pack.leaf_len.data_ptr(), pack.box.data_ptr(),
-            pack.link.data_ptr(), r, *KD_SHAPE, float(eps), int(bool(cull)),
-            idx.data_ptr(), hit.data_ptr(),
-            None if counter is None else counter.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
-        kernels.check(rc, "kd_select")
-        profiling.count("select.launches.kd")
+    launch("kd", o, d, (v0, e1, e2), tri_mask, None, torch.int32,
+           lambda o32, d32, mask, _: (
+               o32.data_ptr(), d32.data_ptr(), pack.tri.data_ptr(),
+               pack.ids.data_ptr(), mask.data_ptr(),
+               pack.leaf_tile.data_ptr(), pack.leaf_len.data_ptr(),
+               pack.box.data_ptr(), pack.link.data_ptr(), r, *KD_SHAPE,
+               float(eps), int(bool(cull)), idx.data_ptr(), hit.data_ptr(),
+               None if counter is None else counter.data_ptr()))
     return idx, hit
+
+
+@counted_select
+def kd_window_select(o, d, v0, e1, e2, eps, cull, tri_mask=None,
+                     t_max=None, any_hit=False, *, tree, pack=None):
+    """The kd select under the common contract, as the JAX package
+    emulates it: the closest hit first; with a window, the winner's
+    refined t decides `hit &= t <= t_max` (the window is not applied
+    inside the walk); with any_hit, idx is zeros.  pack: the kernel's
+    packed tree and triangles (`bind` makes it), None to pack here.
+    While tracing, the kernel adds its work to the record's kd counter."""
+    idx, hit = kd_select_cuda(o, d, v0, e1, e2, eps, cull, tri_mask, tree,
+                              pack, counter=profiling.kd_counter(o.device))
+    if t_max is not None:
+        gidx = idx.long()
+        t, _, _ = mt_refine(o, d, v0[gidx], e1[gidx], e2[gidx], eps)
+        hit = hit & (t <= t_max)
+    if any_hit:
+        idx = torch.zeros_like(idx)
+    return idx, hit
+
+
+def bind(tree: KdTree, geom):
+    """The kd select on `tree`, bound to pack_kd of the tree and `geom`'s
+    triangles when geom is given."""
+    if tree is None:
+        raise ValueError("intersector='kdtree' needs an accel: build one "
+                         "with accel.build.build_kdtree_for_scene")
+    pack = None if geom is None else pack_kd(tree, geom.v0, geom.e1,
+                                             geom.e2)
+    return functools.partial(kd_window_select, tree=tree, pack=pack)

@@ -142,3 +142,8 @@ def mt_select_mxu(o, d, v0, e1, e2, eps: float, cull: bool,
         return (torch.zeros(0, dtype=torch.int32, device=o.device),
                 torch.zeros(0, dtype=torch.bool, device=o.device))
     return torch.cat(idx), torch.cat(hit)
+
+
+def bind(accel, geom):
+    """The mxu select, which reads no table (nor the accelerator)."""
+    return mt_select_mxu

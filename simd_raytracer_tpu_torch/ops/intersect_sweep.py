@@ -17,7 +17,7 @@ entry bound exceeds the largest best t of its rays.  Closest hits merge on
 division-free numerator tests.
 
 The kernel runs one block per GROUP rays (a quarter of a tile) and, when
-a call's groups would not fill the card, `sweep_split` blocks per group,
+a call's groups would not fill the card, `kernels.split` blocks per group,
 each walking every K-th step of the schedule; blocks merge winners through
 the packed keys of `ops/select_keys.py`.  Winners do not depend on the
 split.
@@ -29,22 +29,12 @@ import torch
 
 from .. import kernels
 from ..accel.sweep import R_TILE, SLICE_SIZE
-from ..utils import profiling
 from .intersect import BIG, IMAX, counted_select
-from .select_keys import check_eps, decode_any, decode_closest, seed_keys
+from .select_keys import (check_eps, check_table, decode_any, decode_closest,
+                          launch, seed_keys)
 
 # Rays per block of the kernel (kGroup of csrc/sweep_select.cu).
 GROUP = 128
-
-
-def sweep_split(n_tiles: int, n_slices: int, n_sms: int) -> int:
-    """Blocks per 128-ray group (K of csrc/sweep_select.cu) for a call of
-    n_tiles 512-ray tiles over n_slices slices on a card with n_sms SMs:
-    enough for kernels.BLOCKS_PER_SM blocks on every SM, 1 for calls whose
-    groups already do that, never more than there are schedule steps."""
-    groups = n_tiles * (R_TILE // GROUP)
-    want = -(-kernels.BLOCKS_PER_SM * n_sms // max(groups, 1))
-    return max(1, min(want, n_slices, 65535))
 
 
 def _tile_reach(o, d, tmax, aabb, r_tile: int):
@@ -234,35 +224,30 @@ def sweep_select(count, order, tnear, o, d, tmax, tri_soa, ids, mask, eps,
                                       tri_soa, ids, mask, eps, cull, any_hit)
     p, s = order.shape
     rp = p * R_TILE
-    expect = {"count": (count, (p, 1), torch.int32),
-              "order": (order, (p, s), torch.int32),
-              "tnear": (tnear, (p, s), torch.float32),
-              "o": (o, (rp, 3), torch.float32),
-              "d": (d, (rp, 3), torch.float32),
-              "tmax": (tmax, (rp,), torch.float32),
-              "tri_soa": (tri_soa, (s, 9, SLICE_SIZE), torch.float32),
-              "ids": (ids, (s, SLICE_SIZE), torch.int32),
-              "mask": (mask, (s, SLICE_SIZE), torch.int32)}
-    for name, (x, shape, dtype) in expect.items():
-        if (x.device != o.device or tuple(x.shape) != shape
-                or x.dtype != dtype or not x.is_contiguous()):
-            raise ValueError(f"{name}: expected contiguous {dtype} {shape} "
-                             f"on {o.device}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-    for name in ("tri_soa", "ids", "mask"):   # staged with 16-byte cp.async
-        if expect[name][0].data_ptr() % 16:
+    for name, x, shape, dtype in (
+            ("count", count, (p, 1), torch.int32),
+            ("order", order, (p, s), torch.int32),
+            ("tnear", tnear, (p, s), torch.float32),
+            ("o", o, (rp, 3), torch.float32),
+            ("d", d, (rp, 3), torch.float32),
+            ("tmax", tmax, (rp,), torch.float32),
+            ("tri_soa", tri_soa, (s, 9, SLICE_SIZE), torch.float32),
+            ("ids", ids, (s, SLICE_SIZE), torch.int32),
+            ("mask", mask, (s, SLICE_SIZE), torch.int32)):
+        check_table(name, x, shape, dtype, o.device)
+    for name, x in (("tri_soa", tri_soa), ("ids", ids), ("mask", mask)):
+        if x.data_ptr() % 16:           # staged with 16-byte cp.async
             raise ValueError(f"{name}: needs a 16-byte aligned start")
     keys = seed_keys(tmax)
-    if p:
-        rc = kernels.library().srt_sweep_select(
-            count.data_ptr(), order.data_ptr(), tnear.data_ptr(),
-            o.data_ptr(), d.data_ptr(), tri_soa.data_ptr(), ids.data_ptr(),
-            mask.data_ptr(), p, s,
-            sweep_split(p, s, kernels.sm_count(o.device.index or 0)),
-            float(eps), int(bool(cull)), int(bool(any_hit)), keys.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
-        kernels.check(rc, "sweep_select")
-        profiling.count("select.launches.sweep")
+    launch("sweep", o, d, (), None, None, None,
+           lambda o32, d32, _, __: (
+               count.data_ptr(), order.data_ptr(), tnear.data_ptr(),
+               o32.data_ptr(), d32.data_ptr(), tri_soa.data_ptr(),
+               ids.data_ptr(), mask.data_ptr(), p, s,
+               kernels.split(p * (R_TILE // GROUP), s,
+                             kernels.sm_count(o.device.index or 0)),
+               float(eps), int(bool(cull)), int(bool(any_hit)),
+               keys.data_ptr()))
     return decode_any(keys) if any_hit else decode_closest(keys)
 
 
@@ -333,3 +318,12 @@ def make_sweep_select(sweep):
         return idx[:r], hit[:r]
 
     return select
+
+
+def bind(sweep, geom):
+    """The sweep select on `sweep` (SweepData), whose slices already hold
+    the triangles: `geom` is not read."""
+    if sweep is None:
+        raise ValueError("intersector='sweep' needs an accel: build one "
+                         "with accel.sweep.build_sweep_for_scene")
+    return make_sweep_select(sweep)

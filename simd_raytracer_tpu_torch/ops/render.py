@@ -229,17 +229,22 @@ def make_ray_chunks(scene: Scene, cfg: RenderConfig,
     return np.arange(c * r0, dtype=np.int32).reshape(c, r0)
 
 
+def needs_accel(cfg: RenderConfig) -> bool:
+    """Whether cfg.intersector walks an accelerator (build_accel)."""
+    return cfg.intersector in ("kdtree", "sweep")
+
+
 def build_accel(scene: Scene, cfg: RenderConfig):
     """The accelerator cfg.intersector needs, built from the scene on the
     host (CPU tensors): a KdTree for "kdtree" (the reference builds its
     kd_tree_simd_accel once per run, src/main.cpp:41), SweepData for
     "sweep", None otherwise.  Timed as the set-up phase `accel_build`."""
+    if not needs_accel(cfg):
+        return None
     if cfg.intersector == "kdtree":
         from ..accel.build import build_kdtree_for_scene as build
-    elif cfg.intersector == "sweep":
-        from ..accel.sweep import build_sweep_for_scene as build
     else:
-        return None
+        from ..accel.sweep import build_sweep_for_scene as build
     with profiling.SETUP.phase("accel_build"):
         return build(scene)
 

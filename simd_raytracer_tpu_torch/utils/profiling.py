@@ -318,8 +318,8 @@ def profile_render(scene_path: str, cfg=None, scale: float = 1.0,
     `repeats` warm steps) and grad_rays_per_sec (ids / grad_seconds)."""
     from ..config import RenderConfig
     from ..models.loader import parse_scene_file
-    from ..ops.render import (TorchUniforms, build_accel, render_frame,
-                              resolve_device)
+    from ..ops.render import (TorchUniforms, build_accel, needs_accel,
+                              render_frame, resolve_device)
 
     cfg = cfg or RenderConfig()
     dev = resolve_device(device)
@@ -332,7 +332,7 @@ def profile_render(scene_path: str, cfg=None, scale: float = 1.0,
                                   width=max(8, int(scene.width * scale)))
 
     accel = None
-    if cfg.intersector in ("kdtree", "sweep"):
+    if needs_accel(cfg):
         with timer.phase("accel_build"):
             accel = build_accel(scene, cfg)
 

@@ -19,7 +19,7 @@ import torch
 import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu_torch import kernels
 from simd_raytracer_tpu_torch.accel.build import build_kdtree_for_scene
-from simd_raytracer_tpu_torch.accel.sweep import build_sweep_for_scene
+from simd_raytracer_tpu_torch.accel.sweep import R_TILE, build_sweep_for_scene
 from simd_raytracer_tpu_torch.accel.traverse import kd_select, kd_work_pairs
 from simd_raytracer_tpu_torch.ops import grad as G
 from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
@@ -128,8 +128,8 @@ def test_sweep_split_and_unsplit_match_plain(scene, n_rays, windowed,
     o, d, tmax = incoherent(s.cam_pos, n_rays, 10 + n_rays, windowed)
     solid = g.tri_valid & ~g.tri_transmissive
     args = intersect_sweep.prepare_sweep(sweep, o, d, solid, tmax)
-    k = intersect_sweep.sweep_split(args[1].shape[0], sweep.num_slices,
-                                    n_sms)
+    k = kernels.split(args[1].shape[0] * (R_TILE // intersect_sweep.GROUP),
+                      sweep.num_slices, n_sms)
     assert (k == 1) == unsplit
     got = intersect_sweep.sweep_select(*args, EPS, False, any_hit)
     assert_equal(got, intersect_sweep.sweep_select_reference(
@@ -156,8 +156,9 @@ def test_mt_select_triangle_split_matches_plain(scene, n_tris, windowed,
     pick = torch.arange(n_tris, device=DEV) % n_valid
     v0, e1, e2 = g.v0[pick], g.e1[pick], g.e2[pick]
     mask = torch.arange(n_tris, device=DEV) % 7 != 3
-    assert intersect_brute.k1_split(
-        len(o), n_tris,
+    assert kernels.split(
+        -(-len(o) // intersect_brute.RAY_BLOCK),
+        -(-n_tris // intersect_brute.TRI_TILE),
         torch.cuda.get_device_properties(0).multi_processor_count) > 1
     args = (o, d, v0, e1, e2, EPS, False, mask, tmax, any_hit)
     got = intersect_brute.mt_select_brute(*args)
@@ -189,8 +190,10 @@ def test_mt_select_writes_no_key_past_the_last_ray(scene, n_tris):
     tri = pack_triangles(v0, e1, e2)
     mask = torch.ones(n_tris, dtype=torch.int32, device=DEV)
     tmax = torch.full((n,), BIG, device=DEV)
-    split = intersect_brute.k1_split(
-        n, n_tris, torch.cuda.get_device_properties(0).multi_processor_count)
+    split = kernels.split(
+        -(-n // intersect_brute.RAY_BLOCK),
+        -(-n_tris // intersect_brute.TRI_TILE),
+        torch.cuda.get_device_properties(0).multi_processor_count)
     canary = torch.iinfo(torch.int64).max
     for any_hit in (False, True):
         buf = torch.full((n + 512,), canary, dtype=torch.int64, device=DEV)
@@ -238,8 +241,8 @@ def test_render_on_cuda_matches_cpu(scene, kw):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_select_bound_to_packed_triangles(scene, any_hit):
-    """The render path's brute-force select reads Geometry.tri_soa and
-    gives what packing on the call gives."""
+    """The render path's brute-force select reads the triangles its
+    binding packed and gives what packing on the call gives."""
     s, g, _ = scene
     o, d, tmax = rays(s.cam_pos, 2000, seed=4)
     select = make_select_fn("jnp", geom=g)
@@ -258,8 +261,9 @@ def test_wrappers_reject_bad_input(scene):
         intersect_brute.mt_select_brute(o, d[:10], g.v0, g.e1, g.e2, EPS,
                                         True)
     with pytest.raises(ValueError):
-        intersect_brute.mt_select_brute(o, d, g.v0, g.e1, g.e2, EPS, True,
-                                        tri_soa=g.tri_soa[:, 1:])
+        intersect_brute.mt_select_brute(
+            o, d, g.v0, g.e1, g.e2, EPS, True,
+            tri_soa=make_select_fn("jnp", geom=g).keywords["tri_soa"][:, 1:])
     with pytest.raises(ValueError, match="eps"):   # the key merge needs t >= 0
         intersect_brute.mt_select_brute(o, d, g.v0, g.e1, g.e2, -EPS, True)
     args = list(intersect_sweep.prepare_sweep(sweep, o, d))
@@ -280,7 +284,7 @@ def test_wrappers_reject_bad_input(scene):
         fast(o, d, g.v0, g.e1, g.e2, EPS, True, t_max=o[:10, 0])
     with pytest.raises(ValueError, match="table"):
         fast(o, d, g.v0.clone(), g.e1, g.e2, EPS, True,
-             table=intersect_fast.table_of(g))
+             table=make_select_fn("fast", geom=g).keywords["table"])
 
 
 def test_gradients_on_cuda_match_cpu(scene):
@@ -566,7 +570,7 @@ def test_fast_kernel_matches_plain(scene, cull, masked, windowed, any_hit):
         got = select(*args)
     assert rec.counts["select.launches.fast"] == 1
     assert_equal(got, intersect_fast.mt_select_fast_reference(
-        *args, table=intersect_fast.table_of(g)))
+        *args, table=select.keywords["table"]))
     assert_equal(intersect_fast.mt_select_fast(*args), got)
     assert 0 < int(got[1].sum()) < len(o)
 
@@ -634,7 +638,9 @@ def fast_exact(args, split_over=1):
     """The fast kernel on `args` against the plain version, bit for bit;
     the call's split must exceed `split_over` - 1."""
     r, t = args[0].shape[0], args[2].shape[0]
-    assert intersect_fast.fast_split(r, t, kernels.sm_count(0)) >= split_over
+    block = intersect_fast.FAST_THREADS * intersect_fast.FAST_WIDTH
+    assert kernels.split(-(-r // block), -(-t // intersect_fast.FAST_TILE),
+                         kernels.sm_count(0)) >= split_over
     with profiling.recording() as rec:
         got = intersect_fast.mt_select_fast(*args)
     assert rec.counts["select.launches.fast"] == (r > 0)

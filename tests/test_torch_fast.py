@@ -122,40 +122,10 @@ def test_table_fed_select_equals_the_untabled_one(scene, cull, masked,
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
-def test_table_is_built_once_from_the_geometry(scene):
-    """make_select_fn("fast", geom=g) binds table_of(g): built once for the
-    Geometry object, from g's own (v0, e1, e2), in g's dtype on the CPU;
-    a frame builds one table for all of its selects."""
-    s, g = scene
-    with profiling.recording() as rec:
-        a = make_select_fn("fast", geom=g).keywords["table"]
-        b = make_select_fn("fast", geom=g).keywords["table"]
-    assert a is b and rec.counts["build.table"] <= 1
-    assert a.soa.shape == (F.ROWS, g.v0.shape[0])
-    assert a.soa.dtype == g.v0.dtype
-    for src, x in zip(a.source, (g.v0, g.e1, g.e2)):
-        assert src.data_ptr() == x.data_ptr() and src.shape == x.shape
-    ref = F.fast_table(g.v0, g.e1, g.e2)
-    assert torch.equal(a.center, g.v0.mean(dim=0))
-    assert torch.equal(a.soa, ref.soa)
-    v0c = g.v0 - a.center
-    assert torch.equal(a.soa[F.N:F.N + 3], cross3(g.e1, g.e2).T)
-    assert torch.equal(a.soa[F.WU:F.WU + 3], cross3(v0c, g.e2).T)
-    assert torch.equal(a.soa[F.WV:F.WV + 3], cross3(g.e1, v0c).T)
-    assert torch.equal(a.soa[F.E1:F.E1 + 3], g.e1.T)
-    assert torch.equal(a.soa[F.E2:F.E2 + 3], g.e2.T)
-
-    with profiling.recording() as rec:
-        T.render_frame(s.replace(height=8, width=8),
-                       T.RenderConfig(max_ray_depth=3, occlusion_mode="march",
-                                      intersector="fast"), device="cpu")
-    assert rec.counts["build.table"] == 1
-
-
 def test_table_of_other_triangles_is_refused(scene):
     s, g = scene
     o, d, _ = (torch.from_numpy(x) for x in rays(s.cam_pos, n=64, seed=6))
-    table = F.table_of(g)
+    table = make_select_fn("fast", geom=g).keywords["table"]
     other = g.v0.clone()
     with pytest.raises(ValueError, match="table"):
         F.mt_select_fast(o, d, other, g.e1, g.e2, EPS, True, table=table)
@@ -221,6 +191,7 @@ def test_pack_rows_are_the_kernels_float4_words(scene, dtype):
     v0, e1, e2 = (x[:-5] for x in (g.v0, g.e1, g.e2))
     tab = F.fast_table(v0, e1, e2, dtype)
     v0, e1, e2 = (x.to(dtype) for x in (v0, e1, e2))
+    assert torch.equal(tab.center, v0.mean(dim=0))
     t = v0.shape[0]
     pad = -(-t // F.FAST_TILE) * F.FAST_TILE
     assert tab.pack.shape == (pad, F.ROWS) and tab.pack.is_contiguous()
@@ -246,25 +217,27 @@ def test_pack_rows_are_the_kernels_float4_words(scene, dtype):
 @pytest.mark.parametrize("n_sms", [132, 114, 16])
 @pytest.mark.parametrize("n_tris", [10, 128, 1000, 106510, 250632])
 def test_fast_split_fills_the_card(n_sms, n_tris):
-    """fast_split counts blocks of FAST_THREADS * FAST_WIDTH rays and tiles
-    of FAST_TILE triangles: enough blocks for kernels.BLOCKS_PER_SM on
-    every SM, never more than there are tiles, so every block of the
-    kernel's even share takes at least one; a 1,085-ray march call splits
-    as far as the tiles allow.  K1's split is unchanged."""
+    """The fast kernel's split is kernels.split over blocks of
+    FAST_THREADS * FAST_WIDTH rays and tiles of FAST_TILE triangles:
+    enough blocks for kernels.BLOCKS_PER_SM on every SM, never more than
+    there are tiles, so every block of the kernel's even share takes at
+    least one; a 1,085-ray march call splits as far as the tiles allow.
+    K1's split of a 16,384-ray chunk of the full scene is unchanged."""
     target = kernels.BLOCKS_PER_SM * n_sms
     block = F.FAST_THREADS * F.FAST_WIDTH
     tiles = -(-n_tris // F.FAST_TILE)
+
+    def fast_split(n_rays):
+        return kernels.split(-(-n_rays // block), tiles, n_sms)
+
     for n_rays in (1, block - 1, block + 1, 1085, 16384, 32768):
-        m = F.fast_split(n_rays, n_tris, n_sms)
+        m = fast_split(n_rays)
         assert 1 <= m <= tiles
         assert -(-n_rays // block) * m >= target or m == tiles
         # The kernel's even share: block y takes tiles [y T / m, (y+1) T / m).
         shares = [(y + 1) * tiles // m - y * tiles // m for y in range(m)]
         assert min(shares) >= 1 and sum(shares) == tiles
-    assert F.fast_split(target * block, n_tris, n_sms) == 1
-    assert F.fast_split((target - 1) * block, n_tris, n_sms) == min(2, tiles)
-    k1 = intersect_brute.k1_split
-    assert k1(16384, n_tris, n_sms) == k1(16384, n_tris, n_sms,
-                                          intersect_brute.RAY_BLOCK,
-                                          intersect_brute.TRI_TILE)
-    assert k1(16384, 106510, 132) == 33
+    assert fast_split(target * block) == 1
+    assert fast_split((target - 1) * block) == min(2, tiles)
+    assert kernels.split(16384 // intersect_brute.RAY_BLOCK,
+                         -(-106510 // intersect_brute.TRI_TILE), 132) == 33

@@ -255,29 +255,6 @@ def test_pack_kd_layout(scenes, name, build):
         [tree.child0.numpy(), tree.child1.numpy(), tree.leaf_id.numpy()], 1))
 
 
-def test_kdtree_select_fn_packs_once(scenes):
-    """make_select_fn("kdtree", tree, geom) packs the tree and triangles
-    once for the pair, not per call; a kdtree render packs once."""
-    _, _, ts, tg = scenes["mixed"]
-    tree = build_kdtree_for_scene(ts)
-    o, d, tmax = (torch.from_numpy(x) for x in
-                  rays(ts.cam_pos.numpy(), n=64, seed=6))
-    with profiling.recording() as rec:
-        sel = make_select_fn("kdtree", tree, tg)
-        for any_hit in (False, True, False):
-            sel(o, d, tg.v0, tg.e1, tg.e2, EPS, False, tg.tri_valid, tmax,
-                any_hit)
-        assert make_select_fn("kdtree", tree, tg).keywords["pack"] is \
-            sel.keywords["pack"]
-        assert rec.counts["build.pack"] == 1
-        make_select_fn("kdtree", tree, T.derive_geometry(ts))
-        assert rec.counts["build.pack"] == 2
-    with profiling.recording() as rec:
-        T.render_frame(ts, T.RenderConfig(intersector="kdtree", **KD_RENDER),
-                       device="cpu")
-    assert rec.counts["build.pack"] == 1
-
-
 @pytest.mark.parametrize("cull", [True, False])
 @pytest.mark.parametrize("name", sorted(DOCS))
 def test_kd_select_on_a_deep_tree_matches_jax(scenes, name, cull):

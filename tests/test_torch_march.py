@@ -116,9 +116,10 @@ def test_march_reads_the_winner_only_inside_the_window(glass):
     glass_id = int(tg.tri_transmissive.nonzero()[0, 0])
     cfg = T.RenderConfig(occlusion_mode="march")
     calls = []
+    bound = t_isect.make_select_fn("jnp", geom=tg)
 
     def lying_select(*args, **kw):
-        idx, hit = mt_select_brute(*args, tri_soa=tg.tri_soa, **kw)
+        idx, hit = bound(*args, **kw)
         calls.append(kw.get("any_hit", False))
         return torch.where(hit, idx, glass_id), hit
 

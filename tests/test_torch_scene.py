@@ -22,6 +22,10 @@ from simd_raytracer_tpu_torch.models.scene import (SCENE_TENSOR_FIELDS,
                                                    build_scene,
                                                    scene_from_arrays)
 from simd_raytracer_tpu_torch.models.textures import sample_texture
+from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
+                                          intersect_kd)
+from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
+from simd_raytracer_tpu_torch.ops.render import build_accel
 from simd_raytracer_tpu_torch.utils import ppm
 from test_loader import minimal_doc
 from torch_scenes import (bitmap_scene_kwargs, mixed_doc, terrain_doc)
@@ -105,18 +109,80 @@ def test_derive_geometry_matches_jax(name):
 
 @pytest.mark.parametrize("name", ["minimal", "mixed"])
 def test_geometry_packs_triangles_as_jax(name):
-    """Geometry.tri_soa, the brute-force kernel's (9, T) layout, packed once
-    per frame: the JAX pack_triangles of the same geometry."""
+    """The brute-force kernel's (9, T) layout, packed by the select's
+    binding to a frame's geometry: the JAX pack_triangles of the same
+    geometry."""
     js = J.parse_scene_dict(DOCS[name]())
     jg = J.derive_geometry(js)
     tg = T.derive_geometry(T.parse_scene_dict(DOCS[name]()))
-    soa = tg.tri_soa
+    soa = make_select_fn("jnp", geom=tg).keywords["tri_soa"]
     assert soa.dtype == torch.float32 and soa.is_contiguous()
     assert not soa.requires_grad
     assert torch.equal(soa, torch.cat([tg.v0.T, tg.e1.T, tg.e2.T]))
     np.testing.assert_allclose(
         soa.numpy(), np.asarray(j_pack_triangles(jg.v0, jg.e1, jg.e2)),
         rtol=0, atol=1e-6)
+
+
+# intersector -> the backend module, the function there that builds the
+# table its select reads, and the binding's keyword for that table.
+BOUND = {"jnp": (intersect_brute, "pack_triangles", "tri_soa"),
+         "fast": (intersect_fast, "fast_table", "table"),
+         "kdtree": (intersect_kd, "pack_kd", "pack")}
+
+
+@pytest.mark.parametrize("intersector", sorted(BOUND))
+def test_select_is_bound_once_per_geometry(intersector, monkeypatch):
+    """make_select_fn(name, accel, g) builds its select's table from g's
+    own triangles once for the Geometry object and the accel: the same
+    binding comes back on every later call, another Geometry or accel
+    gets its own, and a frame, whose selects share one Geometry, builds
+    one table."""
+    module, table_fn, keyword = BOUND[intersector]
+    real = getattr(module, table_fn)
+    seen = []
+
+    def counted(*args, **kwargs):
+        seen.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, table_fn, counted)
+    s = T.parse_scene_dict(DOCS["mixed"]())
+    cfg = T.RenderConfig(max_ray_depth=3, chunk_size=512,
+                         occlusion_mode="march", intersector=intersector)
+    accel = build_accel(s, cfg)
+    g = T.derive_geometry(s)
+    select = make_select_fn(intersector, accel, g)
+    assert make_select_fn(intersector, accel, g) is select
+    assert len(seen) == 1
+    assert all(a is b for a, b in zip(
+        [x for x in seen[0] if torch.is_tensor(x)], (g.v0, g.e1, g.e2)))
+    assert select.keywords[keyword] is not None
+    assert make_select_fn(intersector, accel,
+                          T.derive_geometry(s)) is not select
+    assert len(seen) == 2
+    if accel is not None:
+        assert make_select_fn(intersector, build_accel(s, cfg),
+                              g) is not select
+        assert len(seen) == 3
+    seen.clear()
+    T.render_frame(s.replace(height=8, width=8), cfg, device="cpu")
+    assert len(seen) == 1
+
+
+@pytest.mark.parametrize("how", ["to", "map", "replace"])
+def test_derived_geometry_starts_unbound(how):
+    """A Geometry made from another by .to(), .map() or .replace() carries
+    none of its selects: a binding holds the tables of the triangles it
+    was built from."""
+    g = T.derive_geometry(T.parse_scene_dict(DOCS["mixed"]()))
+    select = make_select_fn("fast", geom=g)
+    made = {"to": lambda: g.to("cpu"),
+            "map": lambda: g.map(lambda t: t.clone()),
+            "replace": lambda: g.replace(v0=g.v0 + 1.0)}[how]()
+    assert made is not g and made.selects == {}
+    assert make_select_fn("fast", geom=made) is not select
+    assert make_select_fn("fast", geom=g) is select
 
 
 @pytest.mark.parametrize("case", ["vertices", "material", "triangles",

@@ -2,8 +2,8 @@
 the CPU.
 
 The CUDA kernels split a call over a second grid dimension
-(`intersect_sweep.sweep_split`, `intersect_brute.k1_split`) and merge
-winners with an atomicMin over packed (t, id) keys (`ops/select_keys.py`).
+(`kernels.split`) and merge winners with an atomicMin over packed (t, id)
+keys (`ops/select_keys.py`).
 The kernels themselves run only on a card (tests/test_torch_cuda.py);
 these tests hold what surrounds them: the split choice, the key seed and
 decode against the plain versions' lexicographic merge, the work counter
@@ -36,35 +36,39 @@ EPS = 1e-6
 GROUPS_PER_TILE = R_TILE // intersect_sweep.GROUP
 
 
-@pytest.mark.parametrize("n_sms", [114, 132])
-@pytest.mark.parametrize("n_slices", [5, 417, 980])
-def test_sweep_split_fills_the_card(n_sms, n_slices):
-    target = kernels.BLOCKS_PER_SM * n_sms
-    for n_tiles in (1, 3, 32):
-        k = intersect_sweep.sweep_split(n_tiles, n_slices, n_sms)
-        assert 1 <= k <= n_slices
-        # Enough blocks, unless every block already holds one step.
-        assert n_tiles * GROUPS_PER_TILE * k >= target or k == n_slices
-    # A call whose groups fill the card on their own is not split.
-    full = -(-target // GROUPS_PER_TILE)
-    for n_tiles in (full, full + 1, 4 * full):
-        assert intersect_sweep.sweep_split(n_tiles, n_slices, n_sms) == 1
-    assert intersect_sweep.sweep_split(full - 1, n_slices, n_sms) == min(
-        2, n_slices)
+# (kernel, SMs, work): the sweep's calls over `work` schedule steps
+# (slices), K1's over `work` triangles.
+SPLITS = ([("sweep", n_sms, n_slices) for n_sms in (114, 132)
+           for n_slices in (5, 417, 980)]
+          + [("k1", 132, n_tris) for n_tris in (10, 256, 1000, 106510,
+                                                250632)])
 
 
-@pytest.mark.parametrize("n_tris", [10, 256, 1000, 106510, 250632])
-def test_k1_split_fills_the_card(n_tris):
-    n_sms = 132
+@pytest.mark.parametrize("kernel,n_sms,work", SPLITS)
+def test_split_fills_the_card(kernel, n_sms, work):
+    """kernels.split over the sweep's 128-ray groups (four a 512-ray tile)
+    and schedule steps, and over K1's 128-ray blocks and 256-triangle
+    tiles: enough blocks for BLOCKS_PER_SM on every SM, unless every block
+    already holds one step; 1 for a call whose groups fill the card on
+    their own."""
     target = kernels.BLOCKS_PER_SM * n_sms
-    tiles = -(-n_tris // intersect_brute.TRI_TILE)
-    for n_rays in (1, 129, 4096, 16384):
-        m = intersect_brute.k1_split(n_rays, n_tris, n_sms)
-        blocks = -(-n_rays // intersect_brute.RAY_BLOCK)
-        assert 1 <= m <= tiles
-        assert blocks * m >= target or m == tiles
-    assert intersect_brute.k1_split(target * intersect_brute.RAY_BLOCK,
-                                    n_tris, n_sms) == 1
+    if kernel == "sweep":
+        steps = work
+        groups = [n_tiles * GROUPS_PER_TILE for n_tiles in (1, 3, 32)]
+        full = -(-target // GROUPS_PER_TILE) * GROUPS_PER_TILE
+    else:
+        steps = -(-work // intersect_brute.TRI_TILE)
+        groups = [-(-n_rays // intersect_brute.RAY_BLOCK)
+                  for n_rays in (1, 129, 4096, 16384)]
+        full = target
+    for g in groups:
+        k = kernels.split(g, steps, n_sms)
+        assert 1 <= k <= steps
+        assert g * k >= target or k == steps
+    for g in (full, full + GROUPS_PER_TILE, 4 * full):
+        assert kernels.split(g, steps, n_sms) == 1
+    assert kernels.split(full - GROUPS_PER_TILE, steps, n_sms) == min(
+        2, steps)
 
 
 SEEDS = [0.0, -0.0, -2.5, BIG, 7.0, float("inf")]
