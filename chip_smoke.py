@@ -116,27 +116,47 @@ Phases, one result line each:
      the plain version and index_put_(accumulate=True); then two
      loss_and_grad calls of phase 10's step with GI (bitwise equal, every
      gradient), the gather kernel's launches counted.
- 21. one bounce of shading (ops/shade.py, csrc/shade.cu) on two calls of
+ 21. the shading's backward (csrc/shade_grad.cu) on every shade call of
+     one SGD step of the benchmark's train cell (the hw15/scene2 stand-in
+     of perfbench/, its 65,536 middle ray ids, roulette, one diffuse ray,
+     the brute-force select), each call's rows as the render loop made
+     them and every float input requiring grad: bitwise the plain
+     version on the values, within the float64 yardstick of
+     tests/yardstick.py on every gradient, bounce 0's backward timed as
+     below (the kernel line's shade_grad entry, with the share of the
+     yardstick's allowance used as `yardstick_share`); then one bounce of
+     shading (ops/shade.py, csrc/shade.cu) on two calls of
      random rows over the full scene (tests/torch_scenes.py::shade_rows):
      262,144 rows under the GI frame's shading (split, one diffuse ray,
      march occlusion, the fast select) and 16,384 under the kd frame's
      (split, no GI, two lights, fast occlusion, the kd-tree): the fused
      path (three launches) bitwise equal to the plain torch version on
      contrib and every child tensor, and, with every float input
-     requiring grad, on the values and gradients through the autograd
-     node; each path's host ms (until the call returns), wall ms (to a
+     requiring grad, bitwise on the values through the autograd node and,
+     on every input's gradient through its backward (csrc/shade_grad.cu),
+     within the float64 yardstick of tests/yardstick.py (the plain
+     version's float64 gradient from the same `need` and occlusion);
+     each path's host ms (until the call returns), wall ms (to a
      synchronize), device busy ms and launches under torch.profiler, the
      three kernels' own device ms beside their byte bound (the call's
      inputs read once, its contributions, children and shadow rays
      written once, over 3.35 TB/s) and beside the plain version's own
      device ms from the same occlusion (`plain_shading_ms`: neither
-     includes the `need` compaction or the occlusion query).
+     includes the `need` compaction or the occlusion query); the
+     backward's two kernels' device ms and its segmented sums' (CUDA
+     events around each launch) beside their byte bound (its inputs and
+     incoming gradients read once, its gradients written once, over
+     3.35 TB/s), and the whole backward's
+     host ms, device busy ms and launches beside the plain version's
+     autograd backward from the same occlusion.
 Phases 5, 8-12, 15-17, 20 and 21 each count the kernel launches of their own
 paths from zero and fail if a kernel of the path never launched; the
 kernel line reports their sum, with phase 6's, 14's and 18's times and
 bounds of the sweep's full-reach secondary call and K1's, the kd kernel's
-and the fast kernel's primary chunks, and phase 20's of the gathers'
-backward at width 9 (named by each entry's `call`).  The
+and the fast kernel's primary chunks, phase 20's of the gathers'
+backward at width 9, and phase 21's of the shade kernels on the GI call
+and of their backward on the train step's bounce 0 (named by each
+entry's `call`).  The
 last three lines are the card, a JSON object per kernel and
 {"ok": true, ...}.
 Every phase raises on failure, so the script exits non-zero.  It needs a
@@ -166,6 +186,7 @@ KD = "kd_select"
 FAST = "fast_select"
 GATHER = "gather_grad"
 SHADE = "shade"
+SHADE_GRAD = "shade_grad"
 KERNELS = {
     K1: {"name": K1, "route": "cuda",
          "source": "simd_raytracer_tpu_torch/csrc/mt_select.cu",
@@ -188,8 +209,19 @@ KERNELS = {
             "source": "simd_raytracer_tpu_torch/csrc/shade.cu",
             "replaces": "none: jnp (simd_raytracer_tpu/ops/shade.py, "
                         "which XLA fuses)"},
+    SHADE_GRAD: {"name": SHADE_GRAD, "route": "cuda",
+                 "source": "simd_raytracer_tpu_torch/csrc/shade_grad.cu",
+                 "replaces": "none: the JAX package differentiates its jnp "
+                             "shading through XLA"},
 }
-MAX_ERR = {K1: 0, SWEEP: 0, KD: 0, FAST: 0, GATHER: 0, SHADE: 0}
+# The largest error of each kernel against its plain version; for
+# SHADE_GRAD the largest distance of its gradients from the float64
+# yardstick's (tests/yardstick.py).
+MAX_ERR = {K1: 0, SWEEP: 0, KD: 0, FAST: 0, GATHER: 0, SHADE: 0,
+           SHADE_GRAD: 0}
+# The largest share of the yardstick's allowance that SHADE_GRAD's
+# gradients use (1 is the limit).
+YARDSTICK_SHARE = {SHADE_GRAD: 0.0}
 # Edge of the square frames of phases 5 (default), 8, 12, 18 and 19, and
 # the ray ids of each SGD step of phases 10 and 11 (bench.py's chunk).
 FRAME = 480
@@ -797,6 +829,49 @@ def device_profile(run):
         k: t * 1e-9 for k, (_, t) in by_name.items()}
 
 
+@contextlib.contextmanager
+def timed_launches(*names):
+    """CUDA events around each call of the kernel library's C functions
+    `names` (each one or more launches on the calling thread's current
+    stream) made in the block -> {name: [ms of each call]}, filled when
+    the block ends.  Unlike the profiler, it sees every launch however
+    short the window (phase 21's backward).  Each timed call follows a
+    spin of about 0.5 ms on the card (`torch.cuda._sleep`), so the host
+    has queued the call before the card reaches it and the events time
+    the kernels, not the host's launch latency."""
+    from simd_raytracer_tpu_torch import kernels
+    real = kernels.library
+    lib, pairs, out = real(), [], {}
+
+    class Timed:
+        def __getattr__(self, attr):
+            fn = getattr(lib, attr)
+            if attr not in names:
+                return fn
+
+            def timed(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(1_000_000)
+                start.record()
+                rc = fn(*args)
+                end.record()
+                pairs.append((attr, start, end))
+                return rc
+
+            return timed
+
+    timed_lib = Timed()
+    kernels.library = lambda: timed_lib
+    try:
+        yield out
+    finally:
+        kernels.library = real
+        torch.cuda.synchronize()
+        for name, start, end in pairs:
+            out.setdefault(name, []).append(start.elapsed_time(end))
+
+
 def kernel_ms(fn, name, reps):
     """The kernel's own time, without its wrapper's host work: `reps`
     calls of `fn` under torch.profiler -> (mean device ms of the kernels
@@ -892,7 +967,8 @@ def phase_profile(phase, runs):
 LAUNCH_COUNTERS = {K1: "select.launches.brute",
                    SWEEP: "select.launches.sweep",
                    KD: "select.launches.kd", FAST: "select.launches.fast",
-                   GATHER: "gather.launches", SHADE: "shade.launches"}
+                   GATHER: "gather.launches", SHADE: "shade.launches",
+                   SHADE_GRAD: "shade.backward.launches"}
 
 
 @contextlib.contextmanager
@@ -2071,6 +2147,8 @@ def phase_gather(full, accel):
     return launches, calls
 
 
+# Phase 21's grad calls: every shade call of one step of the train cell.
+TRAIN_SHADE = "train step (hw15_scene2.train)"
 # Rows of phase 21's shade calls: a GI split bounce's wavefront (16,384
 # primary rays, two slots a bounce, at depth 4) and a kd frame's chunk.
 SHADE_ROWS = {"gi": 262144, "kd": 16384}
@@ -2135,7 +2213,8 @@ def shade_call(label, scene, geom, cfg, accel, n, seed):
             raise AssertionError(f"{label}: the shade kernels differ from "
                                  f"the plain version (max |d| "
                                  f"{MAX_ERR[SHADE]})")
-    shade_grad_check(label, args)
+    backward = shade_grad_check(label, args)
+    launches[SHADE_GRAD] += backward["launches"]
     need = S.need_rows(hit, weight)
     n_bytes = shade_bytes(args, got, need)
     out = {"rows": n, "needed_rows": need.numel(),
@@ -2170,46 +2249,168 @@ def shade_call(label, scene, geom, cfg, accel, n, seed):
     out.update(kernels_ms=kernels_ms, plain_shading_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by,
                share_of_bound=bound_ms / kernels_ms,
-               host_ms_saved=out["plain"]["host_ms"] - out["fused"]["host_ms"])
+               host_ms_saved=(out["plain"]["host_ms"]
+                              - out["fused"]["host_ms"]),
+               backward=backward)
     return out
 
 
-def shade_grad_check(label, args):
+def same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def shade_grad_check(label, args, timed=True):
     """The call with every float input requiring grad, as in an SGD step:
     `shade` (the kernels under the autograd node) against the plain
-    version, bitwise on the values and on every input's gradient."""
+    version, bitwise on the values and, on every input's gradient, within
+    the float64 yardstick (tests/yardstick.py: the plain version's
+    float64 gradient from the call's own `need` and occlusion); with
+    `timed`, then the backward timed beside the plain version's autograd
+    backward from the same occlusion -> the backward's fields of phase
+    21's line."""
     from simd_raytracer_tpu_torch.ops import shade as S
-    scene, geom, hit, d_in, weight, cfg, accel, coin, rnd_gi = args
+    from yardstick import gradient_gaps, leaf_grads, shade_grads, shade_loss
+    scene, geom, hit, _, weight, cfg, accel, _, _ = args
+    need = S.need_rows(hit, weight)
+    occ, _ = S._shadow(scene, geom, hit, cfg, accel, need)
+    n, k = weight.shape[0], cfg.child_slots
     gen = torch.Generator(device=DEV).manual_seed(21)
+    outs = [torch.rand(shape, generator=gen, device=DEV)
+            for shape in ((n, 3), (n * k, 3), (n * k, 3), (n * k,))]
 
-    def run(fn):
-        leaves = [None if t is None else t.detach().clone().requires_grad_()
-                  for t in S._grad_inputs(scene, hit, d_in, weight, coin,
-                                          rnd_gi)]
-        nh = len(S._GRAD_HIT)
-        h = hit.replace(**dict(zip(S._GRAD_HIT, leaves[:nh])))
-        sc = scene.replace(**dict(zip(S._GRAD_SCENE, leaves[nh + 4:])))
-        contrib, children = fn(sc, geom, h, *leaves[nh:nh + 2], cfg, accel,
-                               *leaves[nh + 2:nh + 4])
-        outs = [contrib, *children[:3]]
-        loss = sum((o * torch.rand(o.shape, generator=gen.manual_seed(i),
-                                   device=DEV)).sum()
-                   for i, o in enumerate(outs))
-        grads = torch.autograd.grad(loss, [t for t in leaves
-                                           if t is not None],
-                                    allow_unused=True)
-        return outs + [children[3]], grads
+    def plain(*a):
+        return S.shade_reference(*a, lights=(need, occ))
 
     with counting() as launches:
-        vals, grads = run(S.shade)
-    if launches[SHADE] == 0:
-        raise AssertionError(f"{label}: the grad call launched no kernel")
-    vals_p, grads_p = run(S.shade_reference)
-    for a, b in zip([*vals, *grads], [*vals_p, *grads_p]):
-        if (a is None) != (b is None) or (a is not None and not torch.equal(
-                a, b)):
-            raise AssertionError(f"{label}: the autograd node's values or "
-                                 f"gradients differ from the plain version")
+        vals, got = shade_grads(S.shade, args, outs)
+    if launches[SHADE] == 0 or launches[SHADE_GRAD] == 0:
+        raise AssertionError(f"{label}: the grad call launched no kernel "
+                             f"({launches})")
+    vals_p, plain32 = shade_grads(S.shade_reference, args, outs)
+    for a, b in zip(vals, vals_p):
+        if not same_bits(a, b):
+            raise AssertionError(f"{label}: the autograd node's values "
+                                 f"differ from the plain version")
+    _, exact = shade_grads(plain, args, outs, torch.float64)
+    gaps = gradient_gaps(got, plain32, exact)
+    for i, (gap, allowed) in enumerate(gaps):
+        if gap > allowed:
+            raise AssertionError(f"{label}: gradient {i} off the float64 "
+                                 f"yardstick: {gap} > {allowed}")
+    gap = max(g for g, _ in gaps)
+    share = max(g / a if a else 0.0 for g, a in gaps)
+    MAX_ERR[SHADE_GRAD] = max(MAX_ERR[SHADE_GRAD], gap)
+    YARDSTICK_SHARE[SHADE_GRAD] = max(YARDSTICK_SHARE[SHADE_GRAD], share)
+    out = {"rows": n, "needed_rows": need.numel(),
+           "launches": launches[SHADE_GRAD], "values_bitwise_equal": True,
+           "max_abs_gap": gap, "yardstick_share": share}
+    if not timed:
+        return out
+    # The two kernels and the segmented sums (two launches a call), each
+    # call between CUDA events, over five backward calls.
+    reps = 5
+    with timed_launches("srt_shade_bounce_grad", "srt_shade_lights_grad",
+                        "srt_gather_grad") as ms:
+        for _ in range(reps):
+            _, loss, leaves = shade_loss(S.shade, args, outs)
+            leaf_grads(loss, leaves)
+    out.update(
+        kernels_ms=sum(sum(ms.get(k, [])) for k in (
+            "srt_shade_bounce_grad", "srt_shade_lights_grad")) / reps,
+        sums_ms=sum(ms.get("srt_gather_grad", [])) / reps)
+    for path, fn in (("kernels", S.shade), ("plain", plain)):
+        host, prof = [], None
+        for rep in range(6):
+            _, loss, leaves = shade_loss(fn, args, outs)
+            torch.cuda.synchronize()
+            if rep == 5:
+                prof = device_profile(lambda: leaf_grads(loss, leaves))
+                continue
+            t0 = time.perf_counter()
+            leaf_grads(loss, leaves)
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        _, busy, events, top, _ = prof
+        out[path] = {"host_ms": 1e3 * float(np.median(host)),
+                     "device_busy_ms": 1e3 * busy, "device_events": events,
+                     "top": top}
+    n_bytes = shade_grad_bytes(args, vals, got, need)
+    bound_ms, bound_by = bound(0, n_bytes)
+    out.update(bytes=n_bytes, bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / (out["kernels_ms"]
+                                          + out["sums_ms"]),
+               host_ms_saved=out["plain"]["host_ms"]
+               - out["kernels"]["host_ms"])
+    return out
+
+
+def train_shade_calls():
+    """The shade calls of one SGD step of the benchmark's train cell
+    (perfbench/configs/hw15_scene2.json under perfbench/traffic/train.json:
+    the frozen hw15/scene2 stand-in at 1920x1920, its 65,536 middle ray
+    ids at spp 8, depth 5, roulette, one diffuse ray, the brute-force
+    select, fast occlusion), each call's arguments as the render loop
+    passes them -> [args], one a bounce."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.ops import grad as G
+    from simd_raytracer_tpu_torch.ops import render
+    from simd_raytracer_tpu_torch.ops.render import build_accel
+    sys.path.insert(0, os.path.join(ROOT, "perfbench"))
+    from pb import scenes
+    from pb.program import render_settings
+    with open(os.path.join(ROOT, "perfbench/configs/hw15_scene2.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(ROOT, "perfbench/traffic/train.json")) as f:
+        traffic = json.load(f)
+    scene = T.parse_scene_dict(scenes.scene_doc(config))
+    cfg = T.RenderConfig(**render_settings(config, traffic))
+    accel = build_accel(scene, cfg)
+    accel = None if accel is None else accel.to(DEV)
+    scene = scene.to(DEV)
+    ids = interior_ids(scene, cfg, int(traffic["rays"]))
+    params, skeleton = G.split_params(scene)
+    calls, real = [], render.shade
+
+    def keep(scene, geom, hit, d_in, weight, cfg, accel, rnd_coin=None,
+             rnd_gi=None):
+        def own(t):
+            return None if t is None else t.detach().clone()
+
+        calls.append((scene.map(own), geom.map(own), hit.map(own),
+                      own(d_in), own(weight), cfg, accel, own(rnd_coin),
+                      own(rnd_gi)))
+        return real(scene, geom, hit, d_in, weight, cfg, accel,
+                    rnd_coin=rnd_coin, rnd_gi=rnd_gi)
+
+    render.shade = keep
+    try:
+        with torch.no_grad():
+            G.pixel_loss(params, skeleton, cfg, ids,
+                         torch.zeros((len(ids), 3), device=DEV),
+                         torch_source(19), accel)
+    finally:
+        render.shade = real
+    return calls
+
+
+def shade_grad_bytes(args, vals, got, need) -> int:
+    """What the backward must move at least: the call's inputs it reads
+    once (the hit record's fields, d_in, weight, the uniforms, `need`, its
+    visibility, the factor, the texture and light tables), the incoming
+    gradients of contrib and the children once, and every input's
+    gradient written once."""
+    scene, _, hit, d_in, weight, _, _, coin, rnd_gi = args
+    n_lights = scene.light_pos.shape[0]
+    return (nbytes(hit.mask, hit.mat_tag, hit.position, hit.hit_n,
+                   hit.face_n, hit.smooth, hit.ior, hit.albedo, hit.tex,
+                   hit.u, hit.v, hit.w, hit.uvs, d_in, weight, coin, rnd_gi,
+                   need, scene.tex_tag, scene.tex_color_a, scene.tex_color_b,
+                   scene.tex_param, scene.tex_offset, scene.tex_width,
+                   scene.tex_height, scene.atlas, scene.light_pos,
+                   scene.light_intensity, *vals[:4], *got)
+            + n_lights * need.numel() + 4 * weight.numel())
 
 
 def phase_shade(full):
@@ -2219,6 +2420,13 @@ def phase_shade(full):
     from simd_raytracer_tpu_torch.ops.render import build_accel
     geom = derive_geometry(full)
     calls, launches = {}, {}
+    train = {}
+    for depth, args in enumerate(train_shade_calls()):
+        train[f"bounce {depth}"] = shade_grad_check(
+            f"train bounce {depth}", args, timed=depth == 0)
+        launches[SHADE_GRAD] = (launches.get(SHADE_GRAD, 0)
+                                + train[f"bounce {depth}"]["launches"])
+    calls[TRAIN_SHADE] = train
     for which, cfg in shade_cfgs().items():
         accel = build_accel(full, cfg)
         accel = None if accel is None else accel.to(DEV)
@@ -2320,6 +2528,16 @@ def main() -> int:
         ms=call["kernels_ms"], plain_ms=call["plain_shading_ms"],
         bound_ms=call["bound_ms"], bound_by=call["bound_by"],
         library_ms=None, call={"what": what, "rows": call["rows"]})
+    call = shade_calls[TRAIN_SHADE]["bounce 0"]
+    KERNELS[SHADE_GRAD].update(
+        launches=launches[SHADE_GRAD], max_abs_err=MAX_ERR[SHADE_GRAD],
+        yardstick_share=YARDSTICK_SHARE[SHADE_GRAD],
+        ms=call["kernels_ms"] + call["sums_ms"],
+        plain_ms=call["plain"]["device_busy_ms"], bound_ms=call["bound_ms"],
+        bound_by=call["bound_by"], library_ms=None,
+        call={"what": f"the backward of bounce 0 of one {TRAIN_SHADE}, "
+                      f"every float input requiring grad",
+              "rows": call["rows"]})
     report("done", seconds=time.perf_counter() - t_start,
            launches_by_path=paths)
     print(card)

@@ -135,6 +135,16 @@ def _bind(path: str) -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.srt_gather_grad.argtypes = [p] * 3 + [ll, i, ll, i] + [p] * 3
     lib.srt_gather_grad.restype = i
+    bind_shade(lib)
+    return lib
+
+
+def bind_shade(lib: ctypes.CDLL) -> None:
+    """Declare the shading kernels' C interface (csrc/shade.cu and
+    csrc/shade_grad.cu) on `lib`, and refuse a library whose argument
+    blocks differ in size from ops/shade.py's ctypes mirrors."""
+    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
     # need, m, n_lights | position, hit_n, face_n, smooth, light_pos,
     # light_intensity | shadow_bias, four_pi | shadow_o, shadow_d, max_t,
     # term, stream
@@ -146,14 +156,23 @@ def _bind(path: str) -> ctypes.CDLL:
     # args (ops/shade.py::BounceArgs, by reference), stream
     lib.srt_shade_bounce.argtypes = [p, p]
     lib.srt_shade_bounce.restype = i
-    lib.srt_shade_args_size.argtypes = []
-    lib.srt_shade_args_size.restype = ll
-    from .ops.shade import BounceArgs
-    if lib.srt_shade_args_size() != ctypes.sizeof(BounceArgs):
-        raise RuntimeError(
-            f"csrc/shade.cu's BounceArgs takes {lib.srt_shade_args_size()} "
-            f"bytes, ops/shade.py's {ctypes.sizeof(BounceArgs)}")
-    return lib
+    # args (ops/shade.py::BounceGradArgs, by reference), stream
+    lib.srt_shade_bounce_grad.argtypes = [p, p]
+    lib.srt_shade_bounce_grad.restype = i
+    # need, m, n_lights | position, hit_n, face_n, smooth, light_pos,
+    # light_intensity, occ, g_factor | four_pi | g_position, g_hit_n,
+    # g_face_n, light_key, light_grad, stream
+    lib.srt_shade_lights_grad.argtypes = [p, ll, i] + [p] * 8 + [f] + [p] * 6
+    lib.srt_shade_lights_grad.restype = i
+    from .ops.shade import BounceArgs, BounceGradArgs
+    for fn, mirror in ((lib.srt_shade_args_size, BounceArgs),
+                       (lib.srt_shade_grad_args_size, BounceGradArgs)):
+        fn.argtypes = []
+        fn.restype = ll
+        if fn() != ctypes.sizeof(mirror):
+            raise RuntimeError(
+                f"the library's {mirror.__name__} takes {fn()} bytes, "
+                f"ops/shade.py's {ctypes.sizeof(mirror)}")
 
 
 def library() -> ctypes.CDLL:

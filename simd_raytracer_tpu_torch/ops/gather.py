@@ -71,12 +71,12 @@ class GatherRows(torch.autograd.Function):
         return out.reshape(shape), None
 
 
-def row_sums(idx: torch.Tensor, values: torch.Tensor,
-             n_rows: int) -> torch.Tensor:
+def row_sums(idx: torch.Tensor, values: torch.Tensor, n_rows: int,
+             launches: str = "gather.launches") -> torch.Tensor:
     """(n_rows, W): row r is the sum of values[i] (values (N, W)) over the
     entries with idx[i] == r (idx (N,) integer, in [0, n_rows)), zero where
-    there is none.  The kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    there is none.  The kernel for CUDA tensors, its two launches counted
+    under `launches`; the plain version for CPU tensors."""
     if not values.is_cuda:
         return row_sums_reference(idx, values, n_rows)
     n, width = values.shape
@@ -98,7 +98,7 @@ def row_sums(idx: torch.Tensor, values: torch.Tensor,
         int(vals.dtype == torch.float64), partial.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(values.device).cuda_stream)
     kernels.check(rc, "gather_grad")
-    profiling.count("gather.launches", 2)
+    profiling.count(launches, 2)
     return out
 
 

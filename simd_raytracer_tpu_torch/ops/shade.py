@@ -11,12 +11,15 @@ which must be float32, it is `shade_fused`: the shading math in three
 launches of `csrc/shade.cu` around the occlusion query, bit for bit the
 torch ops of the plain version (a frame's shade call otherwise enqueues
 some 300 small kernels).  Where a gradient is wanted (training) the last
-two launches run as an autograd node whose backward recomputes the plain
-version from the same occlusion and differentiates it.  On CPU tensors it
-is `shade_reference`, those torch ops.  While tracing, counters
+launch runs as an autograd node whose backward is `csrc/shade_grad.cu`:
+two launches from the call's own rows, visibility and factor, and the
+deterministic segmented sum of `ops/gather.py::row_sums` for the texture
+and light tables (the plain version's gradients up to rounding).  On CPU
+tensors it is `shade_reference`, those torch ops.  While tracing, counters
 `shade.fused.calls`, `shade.fused.rows`, `shade.fused.grad_calls` and
-`shade.plain.calls` say which path ran, and `shade.launches` counts the
-kernels' launches.
+`shade.plain.calls` say which path ran, `shade.launches` counts the
+forward kernels' launches, and `shade.backward.calls`,
+`shade.backward.rows` and `shade.backward.launches` the backward's.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..models.scene import (MAT_CONSTANT, MAT_DIFFUSE, MAT_REFLECTIVE,
 from ..models.textures import sample_texture
 from ..utils import profiling
 from ..utils.profiling import span, spanned
+from .gather import row_sums
 from .intersect import HitRecord, make_select_fn, mt_refine
 
 FOUR_PI = 4.0 * math.pi
@@ -230,10 +234,10 @@ def shade_reference(scene: Scene, geom: Geometry, hit: HitRecord,
                     rnd_gi: Optional[torch.Tensor] = None,
                     lights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     ) -> Tuple[torch.Tensor, Tuple]:
-    """`shade` as torch ops: the plain version of `shade_fused`, and what
-    autograd differentiates.  `lights` (need, occ) are `need_rows` and the
-    light-major visibility of their shadow rays from an earlier query;
-    without it both are computed here."""
+    """`shade` as torch ops: the plain version of `shade_fused`, which
+    autograd differentiates on the CPU.  `lights` (need, occ) are
+    `need_rows` and the light-major visibility of their shadow rays from
+    an earlier query; without it both are computed here."""
     n = d_in.shape[0]
     k = cfg.child_slots
     gi_count = cfg.diffuse_reflection_ray_count
@@ -384,7 +388,7 @@ def shade_reference(scene: Scene, geom: Geometry, hit: HitRecord,
                      child_w.reshape(n * k), child_bg.reshape(n * k))
 
 
-# The pointer fields of BounceArgs (csrc/shade.cu), in its order.
+# The pointer fields of BounceArgs (csrc/shade.cuh), in its order.
 _BOUNCE_POINTERS = (
     "mask", "tag", "weight", "d_in", "position", "hit_n", "face_n", "smooth",
     "ior", "albedo", "tex", "u", "v", "w", "uvs", "factor", "rnd_coin",
@@ -394,7 +398,7 @@ _BOUNCE_POINTERS = (
 
 
 class BounceArgs(ctypes.Structure):
-    """csrc/shade.cu's BounceArgs, field for field."""
+    """csrc/shade.cuh's BounceArgs, field for field."""
     _fields_ = ([(name, ctypes.c_void_p) for name in _BOUNCE_POINTERS]
                 + [("n", ctypes.c_int64), ("atlas_rows", ctypes.c_int64),
                    ("gi", ctypes.c_int), ("k", ctypes.c_int),
@@ -402,6 +406,22 @@ class BounceArgs(ctypes.Structure):
                 + [(name, ctypes.c_float) for name in (
                     "direct_scale", "gi_count", "gi_inv", "pi", "two_pi",
                     "reflection_bias", "refraction_bias")])
+
+
+# The row gradients csrc/shade_grad.cu writes, in BounceGradArgs's order:
+# the hit record's fields of _GRAD_HIT that have one, then d_in and weight.
+_ROW_GRADS = ("position", "hit_n", "face_n", "albedo", "d_in", "ior",
+              "weight")
+
+
+class BounceGradArgs(ctypes.Structure):
+    """csrc/shade_grad.cu's BounceGradArgs, field for field."""
+    _fields_ = ([("f", BounceArgs)]
+                + [(f"g_{name}", ctypes.c_void_p) for name in (
+                    "contrib", "child_o", "child_d", "child_w", *_ROW_GRADS,
+                    "factor", "rnd_gi")]
+                + [("tex_key", ctypes.c_void_p), ("tex_grad", ctypes.c_void_p),
+                   ("n_tex", ctypes.c_int64)])
 
 
 def _rows(t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -416,10 +436,16 @@ def _rows(t: torch.Tensor, dtype: torch.dtype, shape: tuple,
     return t.data_ptr()
 
 
+def _stream(device: torch.device) -> int:
+    """The handle of `device`'s current CUDA stream, which every launch
+    takes."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 class _Call(NamedTuple):
     """One fused shade call after its occlusion query: `shade`'s arguments,
-    the rows that need light, their light-major visibility and each pair's
-    falloff * cos_law (None where no row needs light)."""
+    the rows that need light, their light-major visibility and the summed
+    light factor of every row (None where no row needs light)."""
     scene: Scene
     geom: Geometry
     hit: HitRecord
@@ -431,7 +457,7 @@ class _Call(NamedTuple):
     rnd_gi: Optional[torch.Tensor]
     need: torch.Tensor
     occ: Optional[torch.Tensor]
-    term: Optional[torch.Tensor]
+    factor: Optional[torch.Tensor]
 
 
 def shade_fused(scene: Scene, geom: Geometry, hit: HitRecord,
@@ -440,10 +466,9 @@ def shade_fused(scene: Scene, geom: Geometry, hit: HitRecord,
                 rnd_gi: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Tuple]:
     """`shade` through csrc/shade.cu, float32 CUDA tensors: `need_rows` as
-    in the plain version, then shade_lights (the shadow rays and each
-    pair's falloff * cos_law, light-major), `occluded` as it is, and
-    `_bounce`: shade_factor (the lights' sum into each needed row) and
-    shade_bounce (textures, contributions, children).  Equal to
+    in the plain version, then `_shadow` (shade_lights, `occluded` as it
+    is, shade_factor: the lights' sum into each needed row) and `_bounce`
+    (shade_bounce: textures, contributions, children).  Equal to
     `shade_reference` bit for bit.  Where `wants_grad`, `_bounce` runs as
     the autograd node `_BounceGrad`."""
     gi = cfg.diffuse_reflection_ray_count
@@ -452,9 +477,9 @@ def shade_fused(scene: Scene, geom: Geometry, hit: HitRecord,
     if cfg.bounce_mode == "roulette" and rnd_coin is None:
         raise ValueError("roulette shading needs rnd_coin")
     need = need_rows(hit, weight)
-    occ, term = _shadow(scene, geom, hit, cfg, accel, need)
+    occ, factor = _shadow(scene, geom, hit, cfg, accel, need)
     call = _Call(scene, geom, hit, d_in, weight, cfg, accel, rnd_coin,
-                 rnd_gi, need, occ, term)
+                 rnd_gi, need, occ, factor)
     if wants_grad(scene, hit, d_in, weight, rnd_coin, rnd_gi):
         profiling.count("shade.fused.grad_calls")
         contrib, *children = _BounceGrad.apply(call, *_grad_inputs(
@@ -465,9 +490,10 @@ def shade_fused(scene: Scene, geom: Geometry, hit: HitRecord,
 
 def _shadow(scene: Scene, geom: Geometry, hit: HitRecord,
             cfg: RenderConfig, accel, need: torch.Tensor):
-    """shade_lights over the rows `need`, then `occluded` on its shadow
-    rays: (occ, term), each light-major (L * M,), or (None, None) where no
-    row needs light."""
+    """shade_lights over the rows `need`, `occluded` on its shadow rays,
+    then shade_factor: (occ, factor), the visibility light-major (L * M,)
+    and the lights' sum into each row (N,), or (None, None) where no row
+    needs light."""
     m = need.numel()
     if not m:
         return None, None
@@ -481,7 +507,8 @@ def _shadow(scene: Scene, geom: Geometry, hit: HitRecord,
     shadow_d = torch.empty((pairs, 3), dtype=f32, device=dev)
     max_t = torch.empty(pairs, dtype=f32, device=dev)
     term = torch.empty(pairs, dtype=f32, device=dev)
-    kernels.check(kernels.library().srt_shade_lights(
+    lib = kernels.library()
+    kernels.check(lib.srt_shade_lights(
         need.data_ptr(), m, nl, _rows(hit.position, f32, row3, dev),
         _rows(hit.hit_n, f32, row3, dev), _rows(hit.face_n, f32, row3, dev),
         _rows(hit.smooth, torch.bool, (n,), dev),
@@ -489,23 +516,28 @@ def _shadow(scene: Scene, geom: Geometry, hit: HitRecord,
         _rows(scene.light_intensity, f32, (nl,), dev),
         np.float32(cfg.shadow_bias), np.float32(FOUR_PI),
         shadow_o.data_ptr(), shadow_d.data_ptr(), max_t.data_ptr(),
-        term.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-        "shade_lights")
+        term.data_ptr(), _stream(dev)), "shade_lights")
     profiling.count("shade.launches")
-    return occluded(shadow_o, shadow_d, max_t, scene, geom, cfg,
-                    accel), term
+    occ = occluded(shadow_o, shadow_d, max_t, scene, geom, cfg, accel)
+    factor = torch.zeros(n, dtype=f32, device=dev)
+    kernels.check(lib.srt_shade_factor(
+        need.data_ptr(), m, nl, _rows(occ, torch.bool, (pairs,), dev),
+        term.data_ptr(), factor.data_ptr(), _stream(dev)), "shade_factor")
+    profiling.count("shade.launches")
+    return occ, factor
 
 
 class _BounceGrad(torch.autograd.Function):
-    """`_bounce` as an autograd node.  The forward is the kernels; the
-    backward recomputes the plain version under grad mode from the call's
-    own `need` and `occ` (so no shadow ray is traced again) and
-    differentiates that.  The recomputed values are the kernels' bits, so
-    the gradients are those of the plain version."""
+    """`_bounce` as an autograd node over `_grad_inputs`.  The forward is
+    the kernel; the backward is `_bounce_grad` (csrc/shade_grad.cu), which
+    takes the call's own `need`, `occ` and factor, so no shadow ray is
+    traced again and no torch op of the shading is recomputed."""
 
     @staticmethod
     def forward(ctx, call: _Call, *inputs):
         ctx.call = call
+        # Saved only for autograd's check that no input was changed in
+        # place before the backward, which reads them through `call`.
         ctx.save_for_backward(*inputs)
         ctx.set_materialize_grads(False)
         contrib, children = _bounce(call)
@@ -515,41 +547,14 @@ class _BounceGrad(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, *grads):
-        c = ctx.call
-        leaves = [None if t is None else
-                  t.detach().requires_grad_(t.requires_grad)
-                  for t in ctx.saved_tensors]
-        nh = len(_GRAD_HIT)
-        hit = c.hit.replace(**dict(zip(_GRAD_HIT, leaves[:nh])))
-        d_in, weight, rnd_coin, rnd_gi = leaves[nh:nh + 4]
-        scene = c.scene.replace(**dict(zip(_GRAD_SCENE, leaves[nh + 4:])))
-        with torch.enable_grad():
-            contrib, children = shade_reference(
-                scene, c.geom, hit, d_in, weight, c.cfg, c.accel, rnd_coin,
-                rnd_gi, lights=(c.need, c.occ))
-            # One scalar, sum(o * g), so that autograd.grad takes no
-            # grad_outputs (whose shape check imports sympy, seconds at
-            # the first call): each output still receives exactly 1 * g.
-            outs = [(o * g).sum() for o, g in zip((contrib, *children[:3]),
-                                                  grads)
-                    if g is not None and o.requires_grad]
-            total = outs[0] if outs else None
-            for o in outs[1:]:
-                total = total + o
-        wanted = [i for i, t in enumerate(leaves)
-                  if t is not None and t.requires_grad]
-        result = [None] * len(leaves)
-        if outs and wanted:
-            got = torch.autograd.grad(total, [leaves[i] for i in wanted],
-                                      allow_unused=True)
-            for i, g in zip(wanted, got):
-                result[i] = g
-        return (None, *result)
+        ctx.saved_tensors
+        return (None, *_bounce_grad(ctx.call, grads[:4],
+                                    ctx.needs_input_grad[1:]))
 
 
-def _bounce(call: _Call) -> Tuple[torch.Tensor, Tuple]:
-    """shade_factor, where a row needs light, and shade_bounce, where there
-    is a row: contrib (N, 3) and the children, as `shade` returns them."""
+def _bounce_args(call: _Call, **outputs) -> BounceArgs:
+    """The BounceArgs of `call` (its rows, uniforms and texture tables,
+    checked) with the output pointers given, null where not given."""
     scene, hit, d_in, weight, cfg = (call.scene, call.hit, call.d_in,
                                      call.weight, call.cfg)
     n = weight.shape[0]
@@ -559,68 +564,157 @@ def _bounce(call: _Call) -> Tuple[torch.Tensor, Tuple]:
     dev = weight.device
     f32, i32 = torch.float32, torch.int32
     row3 = (n, 3)
-    lib = kernels.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    factor = None
+    x = scene.tex_tag.shape[0]
+    return BounceArgs(
+        mask=_rows(hit.mask, torch.bool, (n,), dev),
+        tag=_rows(hit.mat_tag, i32, (n,), dev),
+        weight=_rows(weight, f32, (n,), dev),
+        d_in=_rows(d_in, f32, row3, dev),
+        position=_rows(hit.position, f32, row3, dev),
+        hit_n=_rows(hit.hit_n, f32, row3, dev),
+        face_n=_rows(hit.face_n, f32, row3, dev),
+        smooth=_rows(hit.smooth, torch.bool, (n,), dev),
+        ior=_rows(hit.ior, f32, (n,), dev),
+        albedo=_rows(hit.albedo, f32, row3, dev),
+        tex=_rows(hit.tex, i32, (n,), dev),
+        u=_rows(hit.u, f32, (n,), dev), v=_rows(hit.v, f32, (n,), dev),
+        w=_rows(hit.w, f32, (n,), dev),
+        uvs=_rows(hit.uvs, f32, (n, 3, 2), dev),
+        factor=(None if call.factor is None
+                else _rows(call.factor, f32, (n,), dev)),
+        rnd_coin=(_rows(call.rnd_coin, f32, (n,), dev) if roulette
+                  else None),
+        rnd_gi=(_rows(call.rnd_gi, f32, (n, gi, 2), dev) if gi > 0
+                else None),
+        tex_tag=_rows(scene.tex_tag, i32, (x,), dev),
+        tex_color_a=_rows(scene.tex_color_a, f32, (x, 3), dev),
+        tex_color_b=_rows(scene.tex_color_b, f32, (x, 3), dev),
+        tex_param=_rows(scene.tex_param, f32, (x,), dev),
+        tex_offset=_rows(scene.tex_offset, i32, (x,), dev),
+        tex_width=_rows(scene.tex_width, i32, (x,), dev),
+        tex_height=_rows(scene.tex_height, i32, (x,), dev),
+        atlas=_rows(scene.atlas, f32, (scene.atlas.shape[0], 3), dev),
+        n=n, atlas_rows=scene.atlas.shape[0], gi=gi, k=k,
+        roulette=int(roulette),
+        # Python scalars as torch rounds them: a double to float; a
+        # division by (gi + 1) on the card multiplies by the float
+        # reciprocal.
+        direct_scale=np.float32(1.0 / (gi + 1)), gi_count=np.float32(gi),
+        gi_inv=np.float32(1.0) / np.float32(gi + 1),
+        pi=np.float32(math.pi), two_pi=np.float32(2.0 * math.pi),
+        reflection_bias=np.float32(cfg.reflection_bias),
+        refraction_bias=np.float32(cfg.refraction_bias),
+        **{name: t.data_ptr() for name, t in outputs.items()})
+
+
+def _bounce(call: _Call) -> Tuple[torch.Tensor, Tuple]:
+    """shade_bounce, where there is a row: contrib (N, 3) and the
+    children, as `shade` returns them."""
+    n = call.weight.shape[0]
+    k = call.cfg.child_slots
+    dev = call.weight.device
+    f32 = torch.float32
+    out = dict(contrib=torch.empty((n, 3), dtype=f32, device=dev),
+               child_o=torch.empty((n * k, 3), dtype=f32, device=dev),
+               child_d=torch.empty((n * k, 3), dtype=f32, device=dev),
+               child_w=torch.empty(n * k, dtype=f32, device=dev),
+               child_bg=torch.empty(n * k, dtype=torch.bool, device=dev))
+    if n:
+        args = _bounce_args(call, **out)
+        kernels.check(kernels.library().srt_shade_bounce(
+            ctypes.byref(args), _stream(dev)), "shade_bounce")
+        profiling.count("shade.launches")
+    return out["contrib"], (out["child_o"], out["child_d"], out["child_w"],
+                            out["child_bg"])
+
+
+def _bounce_grad(call: _Call, grads, wanted) -> list:
+    """The backward of `_bounce` through csrc/shade_grad.cu: from the
+    gradients of contrib and the children's origins, directions and
+    weights (None where none came) to those of `_grad_inputs`, None where
+    `wanted` is False or the input does not reach the outputs.
+
+    shade_bounce_grad writes every row's gradients, its factor's and its
+    texture table row's; shade_lights_grad, where a row needs light, adds
+    the lights' part to the needed rows and writes each (light, row)
+    pair's light gradients; `row_sums` adds the texture and light tables'
+    gradients by row in a fixed order."""
+    scene, hit, weight, cfg = call.scene, call.hit, call.weight, call.cfg
+    n = weight.shape[0]
+    profiling.count("shade.backward.calls")
+    profiling.count("shade.backward.rows", n)
+    names = (*_GRAD_HIT, "d_in", "weight", "rnd_coin", "rnd_gi",
+             *_GRAD_SCENE)
+    want = dict(zip(names, wanted))
+    if n == 0 or all(g is None for g in grads):
+        return [None] * len(names)
+    k = cfg.child_slots
+    gi = cfg.diffuse_reflection_ray_count
+    dev = weight.device
+    f32 = torch.float32
+    row3 = (n, 3)
+    # What the kernels read and write, by BounceGradArgs's field names.
+    bufs = {}
+    for name, g, shape in zip(("contrib", "child_o", "child_d", "child_w"),
+                              grads, (row3, (n * k, 3), (n * k, 3),
+                                      (n * k,))):
+        if g is not None:
+            bufs[f"g_{name}"] = g = g.contiguous()
+            _rows(g, f32, shape, dev)
+    for name in _ROW_GRADS:
+        bufs[f"g_{name}"] = torch.empty(
+            (n,) if name in ("ior", "weight") else row3, dtype=f32,
+            device=dev)
+    if gi > 0 and want["rnd_gi"]:
+        bufs["g_rnd_gi"] = torch.empty((n, gi, 2), dtype=f32, device=dev)
     m = call.need.numel()
     if m:
-        nl = scene.light_pos.shape[0]
-        factor = torch.zeros_like(weight)
-        kernels.check(lib.srt_shade_factor(
-            call.need.data_ptr(), m, nl,
-            _rows(call.occ, torch.bool, (nl * m,), dev),
-            call.term.data_ptr(), factor.data_ptr(), stream), "shade_factor")
-        profiling.count("shade.launches")
+        bufs["g_factor"] = torch.empty(n, dtype=f32, device=dev)
+    n_tex, texels = scene.tex_tag.shape[0], scene.atlas.shape[0]
+    if want["tex_color_a"] or want["tex_color_b"] or want["atlas"]:
+        bufs["tex_key"] = torch.empty(n, dtype=torch.int64, device=dev)
+        bufs["tex_grad"] = torch.empty(row3, dtype=f32, device=dev)
+    args = BounceGradArgs(f=_bounce_args(call), n_tex=n_tex,
+                          **{key: t.data_ptr() for key, t in bufs.items()})
+    lib = kernels.library()
+    kernels.check(lib.srt_shade_bounce_grad(ctypes.byref(args),
+                                            _stream(dev)), "shade_bounce_grad")
+    profiling.count("shade.backward.launches")
+    result = {name: bufs[f"g_{name}"] for name in _ROW_GRADS}
+    result["rnd_gi"] = bufs.get("g_rnd_gi")
 
-    contrib = torch.empty(row3, dtype=f32, device=dev)
-    child_o = torch.empty((n * k, 3), dtype=f32, device=dev)
-    child_d = torch.empty((n * k, 3), dtype=f32, device=dev)
-    child_w = torch.empty(n * k, dtype=f32, device=dev)
-    child_bg = torch.empty(n * k, dtype=torch.bool, device=dev)
-    if n:
-        x = scene.tex_tag.shape[0]
-        args = BounceArgs(
-            mask=_rows(hit.mask, torch.bool, (n,), dev),
-            tag=_rows(hit.mat_tag, i32, (n,), dev),
-            weight=_rows(weight, f32, (n,), dev),
-            d_in=_rows(d_in, f32, row3, dev),
-            position=_rows(hit.position, f32, row3, dev),
-            hit_n=_rows(hit.hit_n, f32, row3, dev),
-            face_n=_rows(hit.face_n, f32, row3, dev),
-            smooth=_rows(hit.smooth, torch.bool, (n,), dev),
-            ior=_rows(hit.ior, f32, (n,), dev),
-            albedo=_rows(hit.albedo, f32, row3, dev),
-            tex=_rows(hit.tex, i32, (n,), dev),
-            u=_rows(hit.u, f32, (n,), dev), v=_rows(hit.v, f32, (n,), dev),
-            w=_rows(hit.w, f32, (n,), dev),
-            uvs=_rows(hit.uvs, f32, (n, 3, 2), dev),
-            factor=None if factor is None else factor.data_ptr(),
-            rnd_coin=(_rows(call.rnd_coin, f32, (n,), dev) if roulette
-                      else None),
-            rnd_gi=(_rows(call.rnd_gi, f32, (n, gi, 2), dev) if gi > 0
-                    else None),
-            tex_tag=_rows(scene.tex_tag, i32, (x,), dev),
-            tex_color_a=_rows(scene.tex_color_a, f32, (x, 3), dev),
-            tex_color_b=_rows(scene.tex_color_b, f32, (x, 3), dev),
-            tex_param=_rows(scene.tex_param, f32, (x,), dev),
-            tex_offset=_rows(scene.tex_offset, i32, (x,), dev),
-            tex_width=_rows(scene.tex_width, i32, (x,), dev),
-            tex_height=_rows(scene.tex_height, i32, (x,), dev),
-            atlas=_rows(scene.atlas, f32, (scene.atlas.shape[0], 3), dev),
-            contrib=contrib.data_ptr(), child_o=child_o.data_ptr(),
-            child_d=child_d.data_ptr(), child_w=child_w.data_ptr(),
-            child_bg=child_bg.data_ptr(), n=n,
-            atlas_rows=scene.atlas.shape[0], gi=gi, k=k,
-            roulette=int(roulette),
-            # Python scalars as torch rounds them: a double to float; a
-            # division by (gi + 1) on the card multiplies by the float
-            # reciprocal.
-            direct_scale=np.float32(1.0 / (gi + 1)), gi_count=np.float32(gi),
-            gi_inv=np.float32(1.0) / np.float32(gi + 1),
-            pi=np.float32(math.pi), two_pi=np.float32(2.0 * math.pi),
-            reflection_bias=np.float32(cfg.reflection_bias),
-            refraction_bias=np.float32(cfg.refraction_bias))
-        kernels.check(lib.srt_shade_bounce(ctypes.byref(args), stream),
-                      "shade_bounce")
-        profiling.count("shade.launches")
-    return contrib, (child_o, child_d, child_w, child_bg)
+    if m:
+        nl = scene.light_pos.shape[0]
+        if want["light_pos"] or want["light_intensity"]:
+            bufs["light_key"] = torch.empty(nl * m, dtype=torch.int64,
+                                            device=dev)
+            bufs["light_grad"] = torch.empty((nl * m, 4), dtype=f32,
+                                             device=dev)
+        kernels.check(lib.srt_shade_lights_grad(
+            call.need.data_ptr(), m, nl, _rows(hit.position, f32, row3, dev),
+            _rows(hit.hit_n, f32, row3, dev),
+            _rows(hit.face_n, f32, row3, dev),
+            _rows(hit.smooth, torch.bool, (n,), dev),
+            _rows(scene.light_pos, f32, (nl, 3), dev),
+            _rows(scene.light_intensity, f32, (nl,), dev),
+            _rows(call.occ, torch.bool, (nl * m,), dev),
+            bufs["g_factor"].data_ptr(), np.float32(FOUR_PI),
+            *(bufs[key].data_ptr() for key in ("g_position", "g_hit_n",
+                                               "g_face_n")),
+            *(bufs[key].data_ptr() if key in bufs else None
+              for key in ("light_key", "light_grad")),
+            _stream(dev)), "shade_lights_grad")
+        profiling.count("shade.backward.launches")
+        if "light_key" in bufs:
+            sums = row_sums(bufs["light_key"], bufs["light_grad"], nl,
+                            launches="shade.backward.launches")
+            result["light_pos"] = sums[:, :3]
+            result["light_intensity"] = sums[:, 3]
+    if "tex_key" in bufs:
+        sums = row_sums(bufs["tex_key"], bufs["tex_grad"],
+                        2 * n_tex + texels + 1,
+                        launches="shade.backward.launches")
+        result["tex_color_a"] = sums[:n_tex]
+        result["tex_color_b"] = sums[n_tex:2 * n_tex]
+        result["atlas"] = sums[2 * n_tex:2 * n_tex + texels]
+    return [result.get(name) if want[name] else None for name in names]

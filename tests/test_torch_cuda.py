@@ -30,6 +30,7 @@ from simd_raytracer_tpu_torch.ops.shade import occluded
 from simd_raytracer_tpu_torch.utils import profiling
 from torch_scenes import (SeededUniforms, bitmap_scene_kwargs, grid_doc,
                           mixed_doc, shade_rows)
+from yardstick import gradient_gaps, shade_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -964,13 +965,17 @@ THREE_LIGHTS = ([[0.0, 2.0, -1.0], [2.0, 3.0, -2.0], [-2.0, 1.0, 0.0]],
 @pytest.fixture(scope="module")
 def shade_scene(card):
     """The four-texture scene (albedo, edges, checker, bitmap) on the card
-    with its one light, and with three."""
+    with its one light, and with the first two or all three of
+    THREE_LIGHTS."""
     from simd_raytracer_tpu_torch.models.scene import build_scene
     s = build_scene(**bitmap_scene_kwargs(32, 32)).to(DEV)
     pos, power = THREE_LIGHTS
-    s3 = s.replace(light_pos=torch.tensor(pos, device=DEV),
-                   light_intensity=torch.tensor(power, device=DEV))
-    return {1: s, 3: s3}, T.derive_geometry(s)
+    scenes = {1: s}
+    for count in (2, 3):
+        scenes[count] = s.replace(
+            light_pos=torch.tensor(pos[:count], device=DEV),
+            light_intensity=torch.tensor(power[:count], device=DEV))
+    return scenes, T.derive_geometry(s)
 
 
 def shade_args(scene, geom, cfg, n, seed, lit=True):
@@ -1044,6 +1049,78 @@ def test_shade_kernels_with_no_row_needing_light(shade_scene, mode):
     assert_same_bits(got, S.shade_reference(*args))
 
 
+def check_shade_backward(args, n):
+    """One shade call with every float input requiring grad: the values
+    through the autograd node the plain version's bits, and every input's
+    gradient through csrc/shade_grad.cu within the float64 yardstick (the
+    plain version's float64 gradient from the call's own `need` and
+    occlusion); one backward call of `n` rows and its launches counted."""
+    from simd_raytracer_tpu_torch.ops import shade as S
+    scene, geom, hit, _, weight, cfg = args[:6]
+    need = S.need_rows(hit, weight)
+    occ, _ = S._shadow(scene, geom, hit, cfg, None, need)
+    k = cfg.child_slots
+    gen = torch.Generator(device=DEV).manual_seed(n + k)
+    outs = [torch.randn(shape, generator=gen, device=DEV)
+            for shape in ((n, 3), (n * k, 3), (n * k, 3), (n * k,))]
+    with profiling.recording() as rec:
+        vals, got = shade_grads(S.shade, args, outs)
+    assert rec.counts["shade.fused.grad_calls"] == 1
+    assert rec.counts["shade.backward.calls"] == 1
+    assert rec.counts["shade.backward.rows"] == n
+    # shade_bounce_grad and the texture tables' segmented sum (two);
+    # shade_lights_grad and the lights' segmented sum where a row needs
+    # light.
+    assert rec.counts["shade.backward.launches"] == (
+        0 if n == 0 else 6 if need.numel() else 3)
+    vals_p, plain = shade_grads(S.shade_reference, args, outs)
+    for a, b in zip(vals, vals_p):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    _, exact = shade_grads(
+        lambda *a: S.shade_reference(*a, lights=(need, occ)), args, outs,
+        torch.float64)
+    if n:
+        assert sum(g is not None for g in plain) >= 10
+        for g, g_p in zip(got, plain):
+            assert (g is None) == (g_p is None)
+    for i, (gap, allowed) in enumerate(gradient_gaps(got, plain, exact)):
+        assert gap <= allowed, (i, gap, allowed)
+
+
+@pytest.mark.parametrize("lights", [1, 2])
+@pytest.mark.parametrize("gi", [0, 1, 2])
+@pytest.mark.parametrize("mode", ["split", "roulette"])
+def test_shade_backward_kernels_match_plain_gradients(shade_scene, mode, gi,
+                                                      lights):
+    """Every material tag (textured, refractive with TIR, reflective,
+    constant, diffuse), every texture kind, misses and dead rays: the
+    backward kernels' gradients of every input within the float64
+    yardstick of the plain version's."""
+    scenes, geom = shade_scene
+    cfg = T.RenderConfig(bounce_mode=mode, diffuse_reflection_ray_count=gi,
+                         intersector="jnp")
+    check_shade_backward(shade_args(scenes[lights], geom, cfg, 1000,
+                                    seed=300 + 10 * gi + lights), 1000)
+
+
+@pytest.mark.parametrize("case", ["unlit", "empty"])
+@pytest.mark.parametrize("mode", ["split", "roulette"])
+def test_shade_backward_kernels_with_no_light_or_no_row(shade_scene, mode,
+                                                        case):
+    """Reflective, refractive and constant rows only (no row needs light:
+    no light kernel, no light gradient), and a call of no rows (no
+    launch)."""
+    scenes, geom = shade_scene
+    cfg = T.RenderConfig(bounce_mode=mode, diffuse_reflection_ray_count=1,
+                         intersector="jnp")
+    n = 0 if case == "empty" else 1000
+    check_shade_backward(shade_args(scenes[2], geom, cfg, n, seed=9,
+                                    lit=case != "unlit"), n)
+
+
 def small_frame_cfgs():
     """The two frame cells' configurations at 64 square: GI (split, one
     diffuse ray, march occlusion, the fast select) and kd (spp 1, split,
@@ -1086,33 +1163,42 @@ def test_frames_through_the_shade_kernels_equal_plain(card, which,
 def test_training_shades_through_the_kernels_with_plain_gradients(
         scene, monkeypatch):
     """An SGD step's inputs require grad, so every shade call runs the
-    kernels as the autograd node (`shade.fused.grad_calls` counts them),
-    and the loss and gradients are those of the plain version called
-    directly, bit for bit."""
+    kernels as the autograd node (`shade.fused.grad_calls` counts them)
+    and its backward through csrc/shade_grad.cu (`shade.backward.calls`):
+    the loss is the plain version's bit for bit, and every gradient is
+    within the float64 yardstick of the plain version's (the same step on
+    the CPU in float64)."""
     from simd_raytracer_tpu_torch.ops import render, shade as S
     s, _, _ = scene
     cfg = T.RenderConfig(max_ray_depth=3, samples_per_pixel=2,
                          bounce_mode="roulette", intersector="jnp",
                          diffuse_reflection_ray_count=1)
     n = 48 * 48 * 2
-    params, skeleton = G.split_params(s)
 
-    def step():
+    def step(sc, dev=DEV):
+        params, skeleton = G.split_params(sc)
         return G.loss_and_grad(
-            params, skeleton, cfg, torch.arange(n, device=DEV),
-            torch.full((n, 3), 0.1, device=DEV), SeededUniforms(8, 0))
+            params, skeleton, cfg, torch.arange(n, device=dev),
+            torch.full((n, 3), 0.1, dtype=sc.vertices.dtype, device=dev),
+            SeededUniforms(8, 0))
 
     with profiling.recording() as rec:
-        loss, grads = step()
+        loss, grads = step(s)
     calls = rec.spans["shade"][0]
     assert rec.counts["shade.fused.grad_calls"] == calls > 0
+    assert rec.counts["shade.backward.calls"] == calls
     assert rec.counts["shade.fused.calls"] == calls
     assert rec.counts["shade.plain.calls"] == 0
     monkeypatch.setattr(render, "shade", S.shade_reference)
-    loss_p, grads_p = step()
+    loss_p, grads_p = step(s)
     assert torch.equal(loss, loss_p)
-    for k in G.DIFF_PARAM_NAMES:
-        assert torch.equal(grads[k], grads_p[k]), k
+    _, grads_64 = step(s.to("cpu").map(
+        lambda t: t.double() if t.is_floating_point() else t), "cpu")
+    names = G.DIFF_PARAM_NAMES
+    for k, (gap, allowed) in zip(names, gradient_gaps(
+            [grads[k] for k in names], [grads_p[k] for k in names],
+            [grads_64[k] for k in names])):
+        assert gap <= allowed, (k, gap, allowed)
 
 
 def test_shade_refuses_float64_on_the_card(shade_scene):

@@ -3,13 +3,14 @@
 `shade` runs the kernels of csrc/shade.cu (`shade_fused`) on CUDA
 tensors, which must be float32, and the plain torch version
 `shade_reference` on CPU tensors.  Where a gradient is wanted the kernels'
-last two launches run as an autograd node whose backward differentiates
-the plain version recomputed from the call's own occlusion.  Here the CPU
-path is held to the plain version bit for bit, the choice is pinned for
-the device, the dtype and the gradient, the node's backward is held to
-the plain version's gradients (its forward stood in for by the plain
-version), and the counters are read.  The kernels are held against the
-plain version on the card in tests/test_torch_cuda.py."""
+last launch runs as an autograd node whose backward is csrc/shade_grad.cu
+from the call's own rows, occlusion and factor.  Here the CPU path is held
+to the plain version bit for bit, the choice is pinned for the device, the
+dtype and the gradient, the node's backward (the shading kernels built for
+the CPU by `cuda_on_cpu`; its forward stood in for by the plain version)
+is held to the plain version's gradients by the float64 yardstick
+(`yardstick.gradient_gaps`), and the counters are read.  The kernels are
+held against the plain version on the card in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -21,7 +22,11 @@ from simd_raytracer_tpu_torch.ops import grad as G
 from simd_raytracer_tpu_torch.ops import shade as S
 from simd_raytracer_tpu_torch.ops.intersect import HitRecord
 from simd_raytracer_tpu_torch.utils import profiling
-from torch_scenes import SeededUniforms, mixed_doc, shade_rows
+import cuda_on_cpu
+from simd_raytracer_tpu_torch.models.scene import build_scene
+from torch_scenes import (SeededUniforms, bitmap_scene_kwargs, mixed_doc,
+                          shade_rows)
+from yardstick import gradient_gaps, leaf_grads, shade_grads, shade_loss
 
 torch.set_num_threads(2)
 
@@ -31,6 +36,31 @@ EXTRA = ("d_in", "weight", "rnd_coin", "rnd_gi")
 @pytest.fixture(scope="module")
 def small():
     return T.parse_scene_dict(mixed_doc(12, 16, g=8, subdiv=2))
+
+
+@pytest.fixture(scope="module")
+def textured():
+    """The four-texture scene (albedo, edges, checker, bitmap)."""
+    return build_scene(**bitmap_scene_kwargs(32, 32))
+
+
+@pytest.fixture(scope="module")
+def cpu_library(tmp_path_factory):
+    return cuda_on_cpu.build(str(tmp_path_factory.mktemp("shade_cpu")))
+
+
+@pytest.fixture
+def cpu_kernels(monkeypatch, cpu_library):
+    """The shading kernels' CPU build as `kernels.library()`, launched on
+    CPU tensors (no stream)."""
+    monkeypatch.setattr(kernels, "library", lambda: cpu_library)
+    monkeypatch.setattr(S, "_stream", lambda device: None)
+
+
+def assert_near_plain(got, plain, exact, names=None):
+    """Each leaf's gradient within the float64 yardstick."""
+    for i, (gap, allowed) in enumerate(gradient_gaps(got, plain, exact)):
+        assert gap <= allowed, (names[i] if names else i, gap, allowed)
 
 
 def call_args(scene, n, gi, roulette, seed=0, dtype=torch.float32):
@@ -113,65 +143,182 @@ def plain_bounce(call):
         return S.shade_reference(*call[:9], lights=(call.need, call.occ))
 
 
+def plain_factor(scene, geom, hit, cfg, need, occ):
+    """The summed light factor of every row as the plain version makes it
+    (zero where a row needs no light), or None where no row does."""
+    if not need.numel():
+        return None
+    with torch.no_grad():
+        return torch.zeros_like(hit.u).index_put(
+            (need,), S.direct_light_factor(
+                scene, geom, hit.map(lambda a: a[need]), cfg, None, occ))
+
+
+def node_case(scene, mode, gi, lights, n, lit=True):
+    """A shade call's arguments over `shade_rows` on `scene` with `lights`
+    random lights, its `need`, a random light-major occlusion, and random
+    gradients for contrib and the children's origins, directions and
+    weights; with lit False no row is diffuse or textured."""
+    cfg = T.RenderConfig(bounce_mode=mode, diffuse_reflection_ray_count=gi,
+                         intersector="jnp")
+    gen = torch.Generator().manual_seed(lights)
+    scene = scene.replace(
+        light_pos=torch.rand((lights, 3), generator=gen) * 4 - 2,
+        light_intensity=torch.rand(lights, generator=gen) * 50 + 10)
+    hit, d_in, weight, coin, rnd_gi = call_args(scene, n, gi,
+                                                mode == "roulette", seed=gi)
+    if not lit:
+        hit = hit.replace(mat_tag=torch.from_numpy(
+            np.random.default_rng(gi).integers(1, 4, n).astype(np.int32)))
+    need = S.need_rows(hit, weight)
+    occ = torch.rand(lights * need.numel(), generator=gen) < 0.3
+    k = cfg.child_slots
+    outs = [torch.randn(shape, generator=gen)
+            for shape in ((n, 3), (n * k, 3), (n * k, 3), (n * k,))]
+    return (scene, hit, d_in, weight, coin, rnd_gi), cfg, need, occ, outs
+
+
+def node_fn(need, occ):
+    """A shade function that runs `_BounceGrad` on its arguments with the
+    given `need` and occlusion."""
+    def node(sc, geom, h, d_in, weight, cfg, accel, coin, rnd_gi):
+        call = S._Call(sc, geom, h, d_in, weight, cfg, accel, coin, rnd_gi,
+                       need, occ if need.numel() else None,
+                       plain_factor(sc, geom, h, cfg, need, occ))
+        contrib, *children = S._BounceGrad.apply(call, *S._grad_inputs(
+            sc, h, d_in, weight, coin, rnd_gi))
+        return contrib, children
+
+    return node
+
+
+def node_args(case, geom):
+    """`shade`'s arguments of a `node_case`."""
+    (scene, hit, d_in, weight, coin, rnd_gi), cfg = case[:2]
+    return scene, geom, hit, d_in, weight, cfg, None, coin, rnd_gi
+
+
+def run_node(case, geom, through_node, dtype=torch.float32):
+    """(values, gradients of every `_grad_inputs` leaf, None where it has
+    none or is not a float) of one shade call: through `_BounceGrad`, or
+    the plain version differentiated by autograd, in `dtype`."""
+    _, _, need, occ, outs = case
+
+    def plain(*args):
+        return S.shade_reference(*args, lights=(need, occ))
+
+    return shade_grads(node_fn(need, occ) if through_node else plain,
+                       node_args(case, geom), outs, dtype)
+
+
+def test_bounce_node_refuses_an_input_changed_in_place(
+        textured, monkeypatch, cpu_kernels):
+    """The backward reads the call's inputs as they were at the forward:
+    one changed in place in between is refused by autograd's version
+    check, not differentiated at its new values."""
+    monkeypatch.setattr(S, "_bounce", plain_bounce)
+    geom = T.derive_geometry(textured)
+    case = node_case(textured, "roulette", 1, 1, 50)
+    _, loss, leaves = shade_loss(node_fn(*case[2:4]), node_args(case, geom),
+                                 case[4])
+    with torch.no_grad():
+        leaves[S._GRAD_HIT.index("albedo")].mul_(0.5)
+    with pytest.raises(RuntimeError, match="modified by an inplace"):
+        leaf_grads(loss, leaves)
+
+
+GRAD_NAMES = (*S._GRAD_HIT, "d_in", "weight", "rnd_coin", "rnd_gi",
+              *S._GRAD_SCENE)
+
+
 @pytest.mark.parametrize("mode,gi,lights", [("split", 0, 1),
                                             ("split", 2, 3),
                                             ("roulette", 1, 1),
-                                            ("roulette", 3, 3)])
-def test_bounce_node_gradients_are_the_plain_versions(small, monkeypatch,
-                                                      mode, gi, lights):
-    """`_BounceGrad`'s backward, which recomputes the plain version from
-    the call's `need` and `occ` and differentiates it, gives every input
-    the plain version's gradient bit for bit, and the forward's values
-    pass through unchanged."""
+                                            ("roulette", 3, 3),
+                                            ("split", 1, 2),
+                                            ("roulette", 0, 2),
+                                            ("roulette", 2, 2)])
+def test_bounce_node_gradients_are_the_plain_versions(
+        textured, monkeypatch, cpu_kernels, mode, gi, lights):
+    """`_BounceGrad`'s backward, csrc/shade_grad.cu from the call's own
+    `need`, `occ` and factor, gives every input the plain version's
+    gradient within the float64 yardstick (every material tag, every
+    texture kind, TIR, misses and dead rows), the same inputs get a
+    gradient, and the forward's values pass through unchanged."""
     monkeypatch.setattr(S, "_bounce", plain_bounce)
-    cfg = T.RenderConfig(bounce_mode=mode, diffuse_reflection_ray_count=gi,
-                         intersector="jnp")
-    geom = T.derive_geometry(small)
-    gen = torch.Generator().manual_seed(lights)
-    scene = small.replace(
-        light_pos=torch.rand((lights, 3), generator=gen) * 4 - 2,
-        light_intensity=torch.rand(lights, generator=gen) * 50 + 10)
-    hit, d_in, weight, coin, rnd_gi = call_args(scene, 400, gi,
-                                                mode == "roulette", seed=gi)
-    need = S.need_rows(hit, weight)
-    occ = torch.rand(lights * need.numel(), generator=gen) < 0.3
-    outs = torch.randn((400, 3), generator=gen), torch.randn(
-        (400 * cfg.child_slots, 3), generator=gen)
-
-    def run(through_node):
-        inputs = [None if t is None or t.dtype == torch.bool else
-                  t.detach().clone().requires_grad_()
-                  for t in S._grad_inputs(scene, hit, d_in, weight, coin,
-                                          rnd_gi)]
-        nh = len(S._GRAD_HIT)
-        h = hit.replace(**dict(zip(S._GRAD_HIT, inputs[:nh])))
-        sc = scene.replace(**dict(zip(S._GRAD_SCENE, inputs[nh + 4:])))
-        args = (sc, geom, h, *inputs[nh:nh + 2], cfg, None,
-                *inputs[nh + 2:nh + 4])
-        if through_node:
-            call = S._Call(*args, need, occ, None)
-            contrib, *children = S._BounceGrad.apply(call, *inputs)
-        else:
-            contrib, children = S.shade_reference(*args, lights=(need, occ))
-        loss = ((contrib * outs[0]).sum() + (children[0] * outs[1]).sum()
-                + (children[1] * outs[1]).sum() + children[2].sum())
-        got = torch.autograd.grad(loss, [t for t in inputs if t is not None],
-                                  allow_unused=True)
-        return [contrib, *children], got
-
-    (vals, grads), (vals_p, grads_p) = run(True), run(False)
+    geom = T.derive_geometry(textured)
+    case = node_case(textured, mode, gi, lights, 400)
+    (vals, grads), (vals_p, grads_p) = (run_node(case, geom, True),
+                                        run_node(case, geom, False))
+    _, grads_64 = run_node(case, geom, False, torch.float64)
     for a, b in zip(vals, vals_p):
         assert torch.equal(a, b)
     assert sum(g is not None for g in grads_p) >= 10
     for g, g_p in zip(grads, grads_p):
         assert (g is None) == (g_p is None)
+    assert_near_plain(grads, grads_p, grads_64, GRAD_NAMES)
+
+
+@pytest.mark.parametrize("case", ["lit", "unlit", "empty"])
+def test_bounce_node_backward_counts_its_launches(
+        textured, monkeypatch, cpu_kernels, case):
+    """One backward call, its rows, and its own launches on the CPU
+    build: shade_bounce_grad, and shade_lights_grad where a row needs
+    light (the tables' segmented sums launch only on the card); none for
+    no row, where every gradient is None.  The gradients stay within the
+    yardstick where no row needs light."""
+    monkeypatch.setattr(S, "_bounce", plain_bounce)
+    geom = T.derive_geometry(textured)
+    n = 0 if case == "empty" else 300
+    c = node_case(textured, "split", 1, 2, n, lit=case != "unlit")
+    with profiling.recording() as rec:
+        _, grads = run_node(c, geom, True)
+    need = c[2].numel()
+    assert (need > 0) is (case == "lit")
+    assert rec.counts["shade.backward.calls"] == 1
+    assert rec.counts["shade.backward.rows"] == n
+    assert rec.counts["shade.backward.launches"] == (
+        {"lit": 2, "unlit": 1, "empty": 0}[case])
+    assert rec.counts["shade.launches"] == 0
+    if case == "empty":
+        assert all(g is None for g in grads)
+        return
+    _, grads_p = run_node(c, geom, False)
+    _, grads_64 = run_node(c, geom, False, torch.float64)
+    assert_near_plain(grads, grads_p, grads_64, GRAD_NAMES)
+
+
+def test_bounce_node_backward_recomputes_no_torch_shading(
+        textured, monkeypatch, cpu_kernels):
+    """The node's backward runs the kernels alone: with the plain version
+    and nested autograd refused once the forward is done, the gradients
+    still come, and match the node's own in an unrestricted run."""
+    monkeypatch.setattr(S, "_bounce", plain_bounce)
+    geom = T.derive_geometry(textured)
+    case = node_case(textured, "roulette", 1, 1, 200)
+    _, want = run_node(case, geom, True)
+    real_bounce = S._bounce
+
+    def forward_then_refuse(call):
+        out = real_bounce(call)
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the backward recomputed the plain shading")
+
+        monkeypatch.setattr(S, "shade_reference", refuse)
+        return out
+
+    monkeypatch.setattr(S, "_bounce", forward_then_refuse)
+    _, got = run_node(case, geom, True)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
         if g is not None:
-            assert torch.equal(g, g_p)
+            assert torch.equal(g, w)
 
 
 def plain_shadow(scene, geom, hit, cfg, accel, need):
     """The kernels' `_shadow` stood in for by the plain version's own
-    shadow rays and occlusion query: (occ, None)."""
+    shadow rays, occlusion query and light factor: (occ, factor)."""
     if not need.numel():
         return None, None
     seen, query = [], S.occluded
@@ -187,38 +334,48 @@ def plain_shadow(scene, geom, hit, cfg, accel, need):
                                   cfg, accel)
         finally:
             S.occluded = query
-    return seen[0], None
+    return seen[0], plain_factor(scene, geom, hit, cfg, need, seen[0])
 
 
 @pytest.mark.parametrize("mode,gi", [("roulette", 1), ("split", 1),
                                      ("split", 0)])
 def test_sgd_step_through_the_fused_path_has_the_plain_gradients(
-        small, monkeypatch, mode, gi):
+        small, monkeypatch, cpu_kernels, mode, gi):
     """A whole SGD step with every shade call taken by `shade_fused` (its
-    two kernel stages stood in for by the plain version): each call goes
-    through the autograd node, and the loss and every parameter's
-    gradient are the plain version's bit for bit."""
+    forward kernel stages stood in for by the plain version, its backward
+    the kernels' CPU build): each call goes through the autograd node and
+    its backward, the loss is the plain version's bit for bit, the same
+    parameters get a gradient, and every parameter's gradient is within
+    the float64 yardstick of a plain step's."""
     cfg = T.RenderConfig(max_ray_depth=3, samples_per_pixel=2,
                          bounce_mode=mode, intersector="jnp",
                          diffuse_reflection_ray_count=gi)
     n = 12 * 16 * 2
 
-    def step():
-        params, skeleton = G.split_params(small)
+    def step(scene):
+        params, skeleton = G.split_params(scene)
+        target = torch.full((n, 3), 0.1, dtype=scene.vertices.dtype)
         return G.loss_and_grad(params, skeleton, cfg, torch.arange(n),
-                               torch.full((n, 3), 0.1), SeededUniforms(8, 0))
+                               target, SeededUniforms(8, 0))
 
-    loss_p, grads_p = step()
+    loss_p, grads_p = step(small)
+    _, grads_64 = step(small.map(lambda t: t.double()
+                                 if t.is_floating_point() else t))
     monkeypatch.setattr(S, "fused_applies", lambda weight: True)
     monkeypatch.setattr(S, "_shadow", plain_shadow)
     monkeypatch.setattr(S, "_bounce", plain_bounce)
     with profiling.recording() as rec:
-        loss, grads = step()
-    assert rec.counts["shade.fused.grad_calls"] == rec.spans["shade"][0] > 0
+        loss, grads = step(small)
+    calls = rec.spans["shade"][0]
+    assert rec.counts["shade.fused.grad_calls"] == calls > 0
+    assert rec.counts["shade.backward.calls"] == calls
     assert rec.counts["shade.plain.calls"] == 0
     assert torch.equal(loss, loss_p)
-    for k in G.DIFF_PARAM_NAMES:
-        assert torch.equal(grads[k], grads_p[k]), k
+    names = G.DIFF_PARAM_NAMES
+    for k in names:
+        assert bool(grads[k].any()) == bool(grads_p[k].any()), k
+    assert_near_plain([grads[k] for k in names], [grads_p[k] for k in names],
+                      [grads_64[k] for k in names], names)
 
 
 def test_cpu_frames_and_steps_never_load_the_kernel_library(small,
@@ -260,6 +417,7 @@ def test_counters_under_recording_on_the_cpu(small, path):
     assert rec.counts["shade.fused.calls"] == 0
     assert rec.counts["shade.fused.rows"] == 0
     assert rec.counts["shade.launches"] == 0
+    assert rec.counts["shade.backward.calls"] == 0
     before = profiling.record()["counts"].get("shade.plain.calls", 0)
     T.render_frame(small.replace(height=4, width=4), cfg, device="cpu")
     assert profiling.record()["counts"].get("shade.plain.calls",
