@@ -9,6 +9,11 @@ changes no winner).  Each slice is a (9, SLICE_SIZE) SoA packet (v0, e1,
 e2 rows) with a tight AABB over its members.  The sweep select
 (ops/intersect_sweep.py) tests a ray tile only against the slices its
 interval boxes can reach, front to back.  Built in NumPy on the host.
+
+The slices hold a copy of their triangles.  Built as they are, they stay
+frozen while an SGD step moves the vertices, as JAX's do.  A sweep marked
+`refit` (RenderConfig.accel_refit) is refitted by `refit_sweep` to each
+frame's or step's vertices where its select is bound.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ class SweepData(TensorStruct):
     aabb: torch.Tensor      # (S, 8) float32: min xyz, max xyz, 2 pad
     tri_ids: torch.Tensor   # (S, slice) int32 global triangle ids, -1 pad
     r_tile: int = R_TILE    # rays per tile of the sweep select
+    # Refit the slices to each binding's vertices (refit_sweep); False
+    # keeps the triangles and boxes of the build.
+    refit: bool = False
 
     @property
     def num_slices(self) -> int:
@@ -119,3 +127,29 @@ def build_sweep_for_scene(scene, partition: str = "morton",
     return SweepData(tri_soa=torch.from_numpy(tri_soa),
                      aabb=torch.from_numpy(aabb),
                      tri_ids=torch.from_numpy(tri_ids))
+
+
+def refit_sweep(sweep: SweepData, vertices: torch.Tensor,
+                tri_vidx: torch.Tensor) -> SweepData:
+    """The same slices over moved vertices: each slice keeps its members
+    (tri_ids, the build's order) and gets their current triangles and a
+    tight box over their corners; padding lanes stay zero and an empty
+    slice keeps its inverted box.  Torch ops on the tables' device, with
+    no host sync; the corners are cast to float32 before the edges are
+    taken, as build_sweep_for_scene does, so the vertices of a build
+    give back its tables bit for bit."""
+    ids = sweep.tri_ids.long()
+    pad = (ids < 0)[..., None]                                # (S, L, 1)
+    vidx = tri_vidx.long()[ids.clamp_min(0)]                  # (S, L, 3)
+    corners = vertices.detach().float()[vidx]                 # (S, L, 3, 3)
+    v0 = corners[:, :, 0]
+    soa = torch.cat([v0, corners[:, :, 1] - v0, corners[:, :, 2] - v0],
+                    dim=2)                                    # (S, L, 9)
+    soa = torch.where(pad, 0.0, soa).transpose(1, 2).contiguous()
+    lo = torch.where(pad, float("inf"), corners.amin(dim=2)).amin(dim=1)
+    hi = torch.where(pad, float("-inf"), corners.amax(dim=2)).amax(dim=1)
+    empty = pad.all(dim=1)                                    # (S, 1)
+    aabb = torch.cat([torch.where(empty, 1.0, lo),
+                      torch.where(empty, -1.0, hi),
+                      lo.new_zeros(lo.shape[0], 2)], dim=1)
+    return sweep.replace(tri_soa=soa, aabb=aabb)

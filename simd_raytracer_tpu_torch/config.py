@@ -5,6 +5,12 @@ same fields, defaults and validation, so one configuration means the same
 render on both sides.  Fields that only steered XLA compilation
 (`compact_factor`, `shadow_compact`, `bounce_skip`) are kept for API parity;
 the eager PyTorch render compacts exactly with `nonzero` whatever they say.
+
+One field is the port's alone: `accel_refit`.  JAX's train steps keep the
+accelerator built from the starting scene, and so does the port by
+default, bit for bit; with `accel_refit` the port refits the sweep's slices
+to each frame's or step's vertices.  Like the refused negative epsilon, it
+is a deliberate difference from JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +59,10 @@ class RenderConfig:
     # the sweep and linear otherwise.
     ray_order: str = "auto"
     bounce_skip: bool = True
+    # With "sweep": every select of a frame or train step runs on slices
+    # refitted to that frame's or step's vertices (the same members, their
+    # current triangles and boxes); False keeps the build's slices.
+    accel_refit: bool = False
 
     def __post_init__(self):
         if self.occlusion_mode not in ("fast", "march"):
@@ -64,6 +74,11 @@ class RenderConfig:
             raise ValueError(f"bad bounce_mode {self.bounce_mode!r}")
         if self.ray_order not in ("auto", "linear", "tiled"):
             raise ValueError(f"bad ray_order {self.ray_order!r}")
+        if self.accel_refit and self.intersector != "sweep":
+            raise ValueError(
+                f"accel_refit refits the sweep; intersector "
+                f"{self.intersector!r} has no refit (the kd tree is not "
+                f"refitted)")
 
     @property
     def child_slots(self) -> int:

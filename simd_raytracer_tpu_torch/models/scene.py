@@ -109,6 +109,10 @@ class Geometry(TensorStruct):
     tri_mesh: torch.Tensor          # (T,) int32
     tri_valid: torch.Tensor         # (T,) bool
     tri_transmissive: torch.Tensor  # (T,) bool, material is refractive
+    # The scene's vertices and corner indices, which a refitted sweep
+    # reads (accel/sweep.py::refit_sweep).
+    vertices: torch.Tensor          # (V, 3)
+    tri_vidx: torch.Tensor          # (T, 3) int32
     # The selects bound to these triangles (ops/intersect.py::
     # make_select_fn); a Geometry made from this one starts with none.
     selects: dict = dataclasses.field(default_factory=dict, init=False,
@@ -191,7 +195,8 @@ def derive_geometry(scene: Scene) -> Geometry:
     return Geometry(v0=p0, e1=e1, e2=e2, face_n=face_n, vn=vn, uv=scene.uv,
                     tri_mat=scene.tri_mat, tri_mesh=scene.tri_mesh,
                     tri_valid=scene.tri_valid,
-                    tri_transmissive=tri_transmissive)
+                    tri_transmissive=tri_transmissive, vertices=v,
+                    tri_vidx=scene.tri_vidx)
 
 
 def scene_from_arrays(arrays, *, height: int, width: int, bucket_size: int,

@@ -28,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..accel.sweep import R_TILE, SLICE_SIZE
+from ..accel.sweep import R_TILE, SLICE_SIZE, refit_sweep
+from ..utils import profiling
 from .intersect import BIG, IMAX, counted_select
 from .select_keys import (check_eps, check_table, decode_any, decode_closest,
                           launch, seed_keys)
@@ -307,13 +308,18 @@ def prepare_sweep(sweep, o, d, tri_mask=None, t_max=None):
 
 def make_sweep_select(sweep):
     """Bind SweepData into the common select signature.  v0/e1/e2 are
-    ignored: the slice geometry was packed at build time."""
+    ignored: the slices hold their triangles.  While tracing, each call
+    counts its tiles times slices and the reachable pairs of them (a read
+    of the schedule on the host)."""
 
     @counted_select
     def select(o, d, v0, e1, e2, eps, cull, tri_mask=None, t_max=None,
                any_hit=False):
         r = o.shape[0]
         args = prepare_sweep(sweep, o, d, tri_mask, t_max)
+        if profiling.tracing():
+            profiling.count("sweep.tiles_x_slices", args[1].numel())
+            profiling.count("sweep.reached", int(args[0].sum()))
         idx, hit = sweep_select(*args, eps, cull, any_hit)
         return idx[:r], hit[:r]
 
@@ -321,9 +327,19 @@ def make_sweep_select(sweep):
 
 
 def bind(sweep, geom):
-    """The sweep select on `sweep` (SweepData), whose slices already hold
-    the triangles: `geom` is not read."""
+    """The sweep select on `sweep` (SweepData), whose slices hold their
+    triangles.  `geom` is read only where `sweep.refit` asks for the
+    slices refitted to its vertices: once a binding, span `refit`, with
+    counters `sweep.refit.calls` and `sweep.refit.slices`."""
     if sweep is None:
         raise ValueError("intersector='sweep' needs an accel: build one "
                          "with accel.sweep.build_sweep_for_scene")
+    if sweep.refit:
+        if geom is None:
+            raise ValueError("a refitted sweep needs the geometry of the "
+                             "frame or step")
+        with profiling.span("refit"):
+            sweep = refit_sweep(sweep, geom.vertices, geom.tri_vidx)
+        profiling.count("sweep.refit.calls")
+        profiling.count("sweep.refit.slices", sweep.num_slices)
     return make_sweep_select(sweep)

@@ -80,10 +80,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_supported(cfg: RenderConfig) -> None:
+def check_supported(cfg: RenderConfig, accel=None) -> None:
     """Raise ValueError for a negative epsilon (the selects' key merge
-    needs t >= 0) on every device."""
+    needs t >= 0) on every device, and for cfg.accel_refit with an accel
+    not marked to be refitted (build_accel marks it)."""
     check_eps(cfg.epsilon)
+    if cfg.accel_refit and not getattr(accel, "refit", False):
+        raise ValueError("accel_refit: pass the accel that "
+                         "build_accel(scene, cfg) makes")
 
 
 def _scatter_rows(n: int, idx: torch.Tensor, vals: torch.Tensor,
@@ -104,7 +108,7 @@ def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
     wavefront slots (`render.slots`) and the live rays entering it
     (`render.live`, and `render.live.d<depth>`).
     """
-    check_supported(cfg)
+    check_supported(cfg, accel)
     r0 = ray_ids.shape[0]
     spp = cfg.samples_per_pixel
     h, w = scene.height, scene.width
@@ -238,7 +242,9 @@ def build_accel(scene: Scene, cfg: RenderConfig):
     """The accelerator cfg.intersector needs, built from the scene on the
     host (CPU tensors): a KdTree for "kdtree" (the reference builds its
     kd_tree_simd_accel once per run, src/main.cpp:41), SweepData for
-    "sweep", None otherwise.  Timed as the set-up phase `accel_build`."""
+    "sweep", None otherwise; with cfg.accel_refit the sweep is marked to
+    be refitted to each frame's or step's vertices.  Timed as the set-up
+    phase `accel_build`."""
     if not needs_accel(cfg):
         return None
     if cfg.intersector == "kdtree":
@@ -246,7 +252,8 @@ def build_accel(scene: Scene, cfg: RenderConfig):
     else:
         from ..accel.sweep import build_sweep_for_scene as build
     with profiling.SETUP.phase("accel_build"):
-        return build(scene)
+        accel = build(scene)
+    return accel.replace(refit=True) if cfg.accel_refit else accel
 
 
 @spanned("frame")
@@ -281,13 +288,13 @@ def frame_setup(scene: Scene, cfg: RenderConfig, device, accel=None,
     chunks (C, R0) as make_ray_chunks deals them): the accelerator is built
     from the scene when None (build_accel).  Raises for a configuration
     check_supported refuses."""
-    check_supported(cfg)
     dev = resolve_device(device)
     scene = scene.to(dev)
     if accel is None:
         accel = build_accel(scene, cfg)
     if accel is not None:
         accel = accel.to(dev)
+    check_supported(cfg, accel)
     ids = torch.from_numpy(make_ray_chunks(scene, cfg, scheduling)).to(dev)
     return scene, accel, derive_geometry(scene), ids
 

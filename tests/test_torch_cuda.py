@@ -26,6 +26,7 @@ from simd_raytracer_tpu_torch.ops import (intersect_brute, intersect_fast,
                                           intersect_kd, intersect_mxu,
                                           intersect_sweep)
 from simd_raytracer_tpu_torch.ops.intersect import make_select_fn
+from simd_raytracer_tpu_torch.ops.render import build_accel
 from simd_raytracer_tpu_torch.ops.shade import occluded
 from simd_raytracer_tpu_torch.utils import profiling
 from torch_scenes import (SeededUniforms, bitmap_scene_kwargs, grid_doc,
@@ -954,6 +955,53 @@ def test_loss_and_grad_on_cuda_is_bitwise_reproducible(scene):
     assert torch.equal(l0, l1)
     for k in G.DIFF_PARAM_NAMES:
         assert torch.equal(g0[k], g1[k]), k
+
+
+def test_train_steps_through_the_refitted_sweep_kernel(scene, monkeypatch):
+    """Three SGD steps at a large rate through the sweep kernel with
+    accel_refit: every select of every step has the winners and hit
+    flags of the mt_select kernel on that step's own triangles, one refit
+    a step, and two runs give the same bits."""
+    s, _, _ = scene
+    cfg = T.RenderConfig(max_ray_depth=5, samples_per_pixel=2,
+                         bounce_mode="roulette", intersector="sweep",
+                         diffuse_reflection_ray_count=1, accel_refit=True)
+    n = 48 * 48 * 2
+    calls = []
+    inner = intersect_sweep.bind
+
+    def bind(sweep, geom):
+        select = inner(sweep, geom)
+        brute = intersect_brute.bind(None, geom)
+
+        def both(*args, **kwargs):
+            got = select(*args, **kwargs)
+            any_hit = kwargs.get("any_hit", len(args) > 9 and args[9])
+            calls.append((got, brute(*args, **kwargs), any_hit))
+            return got
+        return both
+
+    monkeypatch.setattr(intersect_sweep, "bind", bind)
+    runs = []
+    for _ in range(2):
+        params, skeleton = G.split_params(s)
+        with profiling.recording() as rec:
+            runs.append(G.train_steps(
+                params, skeleton, cfg, torch.arange(n, device=DEV),
+                torch.full((n, 3), 0.1, device=DEV),
+                lambda i: SeededUniforms(9, i), lr=0.2, n_steps=3,
+                accel=build_accel(s, cfg).to(DEV)))
+        assert rec.counts["sweep.refit.calls"] == 3
+        assert rec.counts["select.launches.sweep"] > 0
+    assert len(calls) > 6
+    for (idx, hit), (want_i, want_h), any_hit in calls:
+        assert torch.equal(hit, want_h)
+        assert any_hit or torch.equal(idx[hit], want_i[hit])
+    (p0, l0), (p1, l1) = runs
+    assert torch.equal(l0, l1)
+    for k in G.DIFF_PARAM_NAMES:
+        assert torch.equal(p0[k], p1[k]), k
+    assert not torch.equal(p0["vertices"], s.vertices)
 
 
 # ---- shading: csrc/shade.cu against the plain torch version ----------------
