@@ -149,13 +149,26 @@ Phases, one result line each:
      3.35 TB/s), and the whole backward's
      host ms, device busy ms and launches beside the plain version's
      autograd backward from the same occlusion.
-Phases 5, 8-12, 15-17, 20 and 21 each count the kernel launches of their own
-paths from zero and fail if a kernel of the path never launched; the
+ 22. the hit record (csrc/trace.cu) on bounce 0 of one SGD step of the
+     benchmark's train cell (65,536 rays, the brute-force select) and of
+     its spp-128 cell (1,048,576 rays, the refitted sweep), the rays and
+     winners as the render loop made them: the record bitwise the plain
+     version's on every field; with o, d and every table requiring grad
+     and random incoming gradients on every float field, the backward's
+     gradients within the float64 yardstick of tests/yardstick.py;
+     trace_record, and trace_record_grad with its two segmented sums,
+     timed with CUDA events around each launch beside their byte bounds
+     (each input byte read and each output byte written once, over 3.35
+     TB/s), and the whole forward's and backward's host ms, device busy
+     ms and events beside the plain version's.
+Phases 5, 8-12, 15-17 and 20-22 each count the kernel launches of their
+own paths from zero and fail if a kernel of the path never launched; the
 kernel line reports their sum, with phase 6's, 14's and 18's times and
 bounds of the sweep's full-reach secondary call and K1's, the kd kernel's
 and the fast kernel's primary chunks, phase 20's of the gathers'
-backward at width 9, and phase 21's of the shade kernels on the GI call
-and of their backward on the train step's bounce 0 (named by each
+backward at width 9, phase 21's of the shade kernels on the GI call
+and of their backward on the train step's bounce 0, and phase 22's of
+the record's kernels on the train step's bounce 0 (named by each
 entry's `call`).  The
 last three lines are the card, a JSON object per kernel and
 {"ok": true, ...}.
@@ -187,6 +200,8 @@ FAST = "fast_select"
 GATHER = "gather_grad"
 SHADE = "shade"
 SHADE_GRAD = "shade_grad"
+TRACE = "trace_record"
+TRACE_GRAD = "trace_record_grad"
 KERNELS = {
     K1: {"name": K1, "route": "cuda",
          "source": "simd_raytracer_tpu_torch/csrc/mt_select.cu",
@@ -213,15 +228,23 @@ KERNELS = {
                  "source": "simd_raytracer_tpu_torch/csrc/shade_grad.cu",
                  "replaces": "none: the JAX package differentiates its jnp "
                              "shading through XLA"},
+    TRACE: {"name": TRACE, "route": "cuda",
+            "source": "simd_raytracer_tpu_torch/csrc/trace.cu",
+            "replaces": "none: jnp (simd_raytracer_tpu/ops/intersect.py::"
+                        "trace's refine and gathers, which XLA fuses)"},
+    TRACE_GRAD: {"name": TRACE_GRAD, "route": "cuda",
+                 "source": "simd_raytracer_tpu_torch/csrc/trace.cu",
+                 "replaces": "none: the JAX package differentiates its jnp "
+                             "record through XLA"},
 }
 # The largest error of each kernel against its plain version; for
 # SHADE_GRAD the largest distance of its gradients from the float64
 # yardstick's (tests/yardstick.py).
 MAX_ERR = {K1: 0, SWEEP: 0, KD: 0, FAST: 0, GATHER: 0, SHADE: 0,
-           SHADE_GRAD: 0}
-# The largest share of the yardstick's allowance that SHADE_GRAD's
-# gradients use (1 is the limit).
-YARDSTICK_SHARE = {SHADE_GRAD: 0.0}
+           SHADE_GRAD: 0, TRACE: 0, TRACE_GRAD: 0}
+# The largest share of the yardstick's allowance that SHADE_GRAD's and
+# TRACE_GRAD's gradients use (1 is the limit).
+YARDSTICK_SHARE = {SHADE_GRAD: 0.0, TRACE_GRAD: 0.0}
 # Edge of the square frames of phases 5 (default), 8, 12, 18 and 19, and
 # the ray ids of each SGD step of phases 10 and 11 (bench.py's chunk).
 FRAME = 480
@@ -968,7 +991,9 @@ LAUNCH_COUNTERS = {K1: "select.launches.brute",
                    SWEEP: "select.launches.sweep",
                    KD: "select.launches.kd", FAST: "select.launches.fast",
                    GATHER: "gather.launches", SHADE: "shade.launches",
-                   SHADE_GRAD: "shade.backward.launches"}
+                   SHADE_GRAD: "shade.backward.launches",
+                   TRACE: "trace.launches",
+                   TRACE_GRAD: "trace.backward.launches"}
 
 
 @contextlib.contextmanager
@@ -2346,23 +2371,22 @@ def shade_grad_check(label, args, timed=True):
     return out
 
 
-def train_shade_calls():
-    """The shade calls of one SGD step of the benchmark's train cell
-    (perfbench/configs/hw15_scene2.json under perfbench/traffic/train.json:
-    the frozen hw15/scene2 stand-in at 1920x1920, its 65,536 middle ray
-    ids at spp 8, depth 5, roulette, one diffuse ray, the brute-force
-    select, fast occlusion), each call's arguments as the render loop
-    passes them -> [args], one a bounce."""
+def train_cell(config_name: str, traffic_name: str):
+    """One SGD step's set-up of a benchmark train cell
+    (perfbench/configs/<config_name>.json under perfbench/traffic/
+    <traffic_name>.json) on the card -> (params, skeleton, cfg, ids,
+    accel)."""
     import simd_raytracer_tpu_torch as T
     from simd_raytracer_tpu_torch.ops import grad as G
-    from simd_raytracer_tpu_torch.ops import render
     from simd_raytracer_tpu_torch.ops.render import build_accel
     sys.path.insert(0, os.path.join(ROOT, "perfbench"))
     from pb import scenes
     from pb.program import render_settings
-    with open(os.path.join(ROOT, "perfbench/configs/hw15_scene2.json")) as f:
+    with open(os.path.join(ROOT, "perfbench/configs",
+                           f"{config_name}.json")) as f:
         config = json.load(f)
-    with open(os.path.join(ROOT, "perfbench/traffic/train.json")) as f:
+    with open(os.path.join(ROOT, "perfbench/traffic",
+                           f"{traffic_name}.json")) as f:
         traffic = json.load(f)
     scene = T.parse_scene_dict(scenes.scene_doc(config))
     cfg = T.RenderConfig(**render_settings(config, traffic))
@@ -2371,6 +2395,19 @@ def train_shade_calls():
     scene = scene.to(DEV)
     ids = interior_ids(scene, cfg, int(traffic["rays"]))
     params, skeleton = G.split_params(scene)
+    return params, skeleton, cfg, ids, accel
+
+
+def train_shade_calls():
+    """The shade calls of one SGD step of the benchmark's train cell
+    (perfbench/configs/hw15_scene2.json under perfbench/traffic/train.json:
+    the frozen hw15/scene2 stand-in at 1920x1920, its 65,536 middle ray
+    ids at spp 8, depth 5, roulette, one diffuse ray, the brute-force
+    select, fast occlusion), each call's arguments as the render loop
+    passes them -> [args], one a bounce."""
+    from simd_raytracer_tpu_torch.ops import grad as G
+    from simd_raytracer_tpu_torch.ops import render
+    params, skeleton, cfg, ids, accel = train_cell("hw15_scene2", "train")
     calls, real = [], render.shade
 
     def keep(scene, geom, hit, d_in, weight, cfg, accel, rnd_coin=None,
@@ -2439,6 +2476,179 @@ def phase_shade(full):
     return launches, calls
 
 
+# The benchmark's train cells whose first bounce phase 22 captures: the
+# train step's 65,536 rays and the spp-128 step's 1,048,576.
+TRACE_CELLS = {"hw15_scene2.train": ("hw15_scene2", "train"),
+               "hw15_scene2_spp128.sweep_refit": ("hw15_scene2_spp128",
+                                                  "sweep_refit")}
+
+
+def first_trace_call(config_name: str, traffic_name: str):
+    """The record of bounce 0 of one SGD step of a benchmark train cell:
+    (o, d, idx, hit, scene, geom, eps) as `trace` passes them to
+    ops/intersect.py::record_fused, copied."""
+    from simd_raytracer_tpu_torch.ops import grad as G
+    from simd_raytracer_tpu_torch.ops import intersect as I
+    params, skeleton, cfg, ids, accel = train_cell(config_name, traffic_name)
+    calls, real = [], I.record_fused
+
+    def keep(o, d, idx, hit, scene, geom, eps):
+        if not calls:
+            def own(t):
+                return t.detach().clone()
+
+            calls.append((own(o), own(d), own(idx), own(hit),
+                          scene.map(own), geom.map(own), eps))
+        return real(o, d, idx, hit, scene, geom, eps)
+
+    I.record_fused = keep
+    try:
+        with torch.no_grad():
+            G.pixel_loss(params, skeleton, cfg, ids,
+                         torch.zeros((len(ids), 3), device=DEV),
+                         torch_source(22), accel)
+    finally:
+        I.record_fused = real
+    return calls[0]
+
+
+def record_bytes(o, d, idx, hit, scene, geom, record) -> int:
+    """What trace_record must move at least: the rays, winners and flags
+    and every table it reads once, and the record written once."""
+    from simd_raytracer_tpu_torch.ops import intersect as I
+    return (nbytes(o, d, idx, hit, *I._grad_tables(scene, geom),
+                   geom.tri_mat, geom.tri_mesh, scene.mat_tag,
+                   scene.mat_smooth, scene.mat_tex)
+            + nbytes(*(getattr(record, k)
+                       for k in I._GRAD_FIELDS + I._INT_FIELDS)))
+
+
+def record_grad_bytes(o, d, idx, hit, geom, outs, grads) -> int:
+    """What the record's backward must move at least: the rays, winners,
+    flags and the tables it recomputes from read once, the incoming
+    gradients read once, and every input's gradient written once."""
+    return (nbytes(o, d, idx, hit, geom.v0, geom.e1, geom.e2, geom.vn,
+                   geom.tri_mat, *outs) + nbytes(*grads))
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of `fn` until it returns, each call after a
+    synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * float(np.median(times))
+
+
+def trace_record_call(label, o, d, idx, hit, scene, geom, eps):
+    """One captured record call: the kernel's record against the plain
+    version's (bitwise, every field) and, with o, d and every table
+    requiring grad and random incoming gradients on every float field,
+    the backward's gradients against the float64 yardstick; then each
+    timed (CUDA events around each launch, five calls) beside its byte
+    bound, and the host's ms and the device's busy ms and events of the
+    whole forward and backward beside the plain version's."""
+    from simd_raytracer_tpu_torch.ops import intersect as I
+    from yardstick import (RECORD_LEAVES, gradient_gaps, leaf_grads,
+                           record_grads, record_loss)
+    n = o.shape[0]
+    with counting() as launches:
+        got = I.record_fused(o, d, idx, hit, scene, geom, eps)
+    ref = I.record_reference(o, d, idx, hit, scene, geom, eps)
+    for k in I._GRAD_FIELDS + I._INT_FIELDS:
+        a, b = getattr(got, k), getattr(ref, k)
+        if a.dtype == torch.float32:
+            MAX_ERR[TRACE] = max(MAX_ERR[TRACE], float((a - b).abs().max()))
+        if not same_bits(a, b):
+            raise AssertionError(f"{label}: the record's {k} differs from "
+                                 f"the plain version's")
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    outs = [torch.randn(getattr(ref, k).shape, generator=gen, device=DEV)
+            for k in I._GRAD_FIELDS]
+    args = (scene, geom, o, d, idx, hit, outs)
+    with counting() as grad_launches:
+        _, grads = record_grads(I.record_fused, *args, eps=eps)
+    _, plain = record_grads(I.record_reference, *args, eps=eps)
+    _, exact = record_grads(I.record_reference, *args,
+                            dtype=torch.float64, eps=eps)
+    gaps = gradient_gaps(grads, plain, exact)
+    for leaf, (gap, allowed) in zip(RECORD_LEAVES, gaps):
+        if gap > allowed:
+            raise AssertionError(f"{label}: the gradient of {leaf} is off "
+                                 f"the float64 yardstick: {gap} > {allowed}")
+    MAX_ERR[TRACE_GRAD] = max(MAX_ERR[TRACE_GRAD],
+                              max(g for g, _ in gaps))
+    share = max(g / a if a else 0.0 for g, a in gaps)
+    YARDSTICK_SHARE[TRACE_GRAD] = max(YARDSTICK_SHARE[TRACE_GRAD], share)
+    launches[TRACE_GRAD] = grad_launches[TRACE_GRAD]
+    need_launches(f"22 {label}", launches, TRACE, TRACE_GRAD)
+
+    reps = 5
+    with timed_launches("srt_trace_record") as fwd:
+        for _ in range(reps):
+            I.record_fused(o, d, idx, hit, scene, geom, eps)
+    with timed_launches("srt_trace_record_grad", "srt_gather_grad") as bwd:
+        for _ in range(reps):
+            record_grads(I.record_fused, *args, eps=eps)
+    fwd_bytes = record_bytes(o, d, idx, hit, scene, geom, got)
+    bwd_bytes = record_grad_bytes(o, d, idx, hit, geom, outs, grads)
+    out = {"rays": n, "hits": int(hit.sum()), "launches": launches,
+           "bitwise_equal": True, "yardstick_share": share,
+           "forward": {"kernel_ms": sum(fwd["srt_trace_record"]) / reps,
+                       "bytes": fwd_bytes},
+           "backward": {
+               "kernel_ms": sum(bwd["srt_trace_record_grad"]) / reps,
+               "sums_ms": sum(bwd["srt_gather_grad"]) / reps,
+               "bytes": bwd_bytes}}
+    for part, n_bytes in (("forward", fwd_bytes), ("backward", bwd_bytes)):
+        ms = out[part]["kernel_ms"] + out[part].get("sums_ms", 0.0)
+        bound_ms, bound_by = bound(0, n_bytes)
+        out[part].update(bound_ms=bound_ms, bound_by=bound_by,
+                         share_of_bound=bound_ms / ms)
+    for path, fn in (("kernels", I.record_fused),
+                     ("plain", I.record_reference)):
+        def forward():
+            return fn(o, d, idx, hit, scene, geom, eps)
+
+        _, busy, events, _, _ = device_profile(forward)
+        fields = {"forward_host_ms": host_ms(forward),
+                  "forward_device_busy_ms": 1e3 * busy,
+                  "forward_device_events": events}
+        backward_host = []
+        for rep in range(6):
+            _, loss, leaves = record_loss(fn, *args, eps=eps)
+            torch.cuda.synchronize()
+            if rep == 5:
+                _, busy, events, _, _ = device_profile(
+                    lambda: leaf_grads(loss, leaves))
+                continue
+            t0 = time.perf_counter()
+            leaf_grads(loss, leaves)
+            backward_host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        fields.update(backward_host_ms=1e3 * float(np.median(backward_host)),
+                      backward_device_busy_ms=1e3 * busy,
+                      backward_device_events=events)
+        out[path] = fields
+    return out
+
+
+def phase_trace():
+    """Phase 22: the hit record (csrc/trace.cu) on bounce 0 of one SGD step
+    of the benchmark's two train cells."""
+    calls, launches = {}, {}
+    for label, cell in TRACE_CELLS.items():
+        calls[label] = trace_record_call(label, *first_trace_call(*cell))
+        for k, v in calls[label]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    report("22 trace record", calls=calls)
+    return launches, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2490,6 +2700,7 @@ def main() -> int:
     phase_mxu(small, full)
     paths["20 gathers' backward"], gather_calls = phase_gather(full, accel)
     paths["21 shade"], shade_calls = phase_shade(full)
+    paths["22 trace record"], trace_calls = phase_trace()
     for name, more in paths.items():
         if name[0] != "5":
             for k in launches:
@@ -2538,6 +2749,18 @@ def main() -> int:
         call={"what": f"the backward of bounce 0 of one {TRAIN_SHADE}, "
                       f"every float input requiring grad",
               "rows": call["rows"]})
+    call = trace_calls["hw15_scene2.train"]
+    for kernel, part in ((TRACE, "forward"), (TRACE_GRAD, "backward")):
+        entry = call[part]
+        KERNELS[kernel].update(
+            launches=launches[kernel], max_abs_err=MAX_ERR[kernel],
+            ms=entry["kernel_ms"] + entry.get("sums_ms", 0.0),
+            plain_ms=call["plain"][f"{part}_device_busy_ms"],
+            bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
+            library_ms=None,
+            call={"what": f"the {part} of bounce 0's record of one "
+                          f"hw15_scene2.train step", "rays": call["rays"]})
+    KERNELS[TRACE_GRAD]["yardstick_share"] = YARDSTICK_SHARE[TRACE_GRAD]
     report("done", seconds=time.perf_counter() - t_start,
            launches_by_path=paths)
     print(card)

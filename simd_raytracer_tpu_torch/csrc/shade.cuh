@@ -1,7 +1,8 @@
 // What csrc/shade.cu (one bounce of shading, forward) and csrc/shade_grad.cu
 // (its backward) share: the float3 helpers that repeat the torch ops of
 // ops/shade.py in their order, the argument block of a bounce, and the
-// texture lookup of models/textures.py::sample_texture.
+// texture lookup of models/textures.py::sample_texture.  csrc/trace.cu (the
+// hit record) uses the helpers.
 //
 // Every helper rounds as its torch counterpart on the card does: dot3 as
 // (x*x' + y*y') + z*z', cross3 with one multiply a term, safe_normalize as

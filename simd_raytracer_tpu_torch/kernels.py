@@ -136,6 +136,7 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.srt_gather_grad.argtypes = [p] * 3 + [ll, i, ll, i] + [p] * 3
     lib.srt_gather_grad.restype = i
     bind_shade(lib)
+    bind_trace(lib)
     return lib
 
 
@@ -165,14 +166,36 @@ def bind_shade(lib: ctypes.CDLL) -> None:
     lib.srt_shade_lights_grad.argtypes = [p, ll, i] + [p] * 8 + [f] + [p] * 6
     lib.srt_shade_lights_grad.restype = i
     from .ops.shade import BounceArgs, BounceGradArgs
-    for fn, mirror in ((lib.srt_shade_args_size, BounceArgs),
-                       (lib.srt_shade_grad_args_size, BounceGradArgs)):
+    _check_sizes(((lib.srt_shade_args_size, BounceArgs),
+                  (lib.srt_shade_grad_args_size, BounceGradArgs)),
+                 "ops/shade.py")
+
+
+def bind_trace(lib: ctypes.CDLL) -> None:
+    """Declare the hit record's kernels' C interface (csrc/trace.cu) on
+    `lib`, and refuse a library whose argument blocks differ in size from
+    ops/intersect.py's ctypes mirrors."""
+    # args (ops/intersect.py::RecordArgs or RecordGradArgs, by reference),
+    # stream
+    for fn in (lib.srt_trace_record, lib.srt_trace_record_grad):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    from .ops.intersect import RecordArgs, RecordGradArgs
+    _check_sizes(((lib.srt_trace_args_size, RecordArgs),
+                  (lib.srt_trace_grad_args_size, RecordGradArgs)),
+                 "ops/intersect.py")
+
+
+def _check_sizes(pairs, where: str) -> None:
+    """Refuse a library whose size function of an argument block differs
+    from its ctypes mirror's size."""
+    for fn, mirror in pairs:
         fn.argtypes = []
-        fn.restype = ll
+        fn.restype = ctypes.c_longlong
         if fn() != ctypes.sizeof(mirror):
             raise RuntimeError(
                 f"the library's {mirror.__name__} takes {fn()} bytes, "
-                f"ops/shade.py's {ctypes.sizeof(mirror)}")
+                f"{where}'s {ctypes.sizeof(mirror)}")
 
 
 def library() -> ctypes.CDLL:
@@ -199,6 +222,25 @@ def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device `index`."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def data_ptr(t, dtype, shape: tuple, device) -> int:
+    """The data pointer of tensor `t` after checking what a kernel takes:
+    its dtype, shape and device, and a contiguous layout."""
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"a kernel expected {dtype} {shape} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"a kernel's {tuple(t.shape)} input is not "
+                         f"contiguous")
+    return t.data_ptr()
+
+
+def stream(device) -> int:
+    """The handle of CUDA `device`'s current stream, which every launch
+    takes."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(rc: int, name: str) -> None:

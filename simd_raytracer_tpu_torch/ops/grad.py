@@ -8,7 +8,9 @@ gradients flow through the winning triangles' refined intersection math,
 shading and texture lookups; the select kernels need no backward.  The
 scene tables' gathers go through `ops/gather.py::gather_rows`, whose
 backward sums each row's duplicates in a fixed order (a kernel on the
-card), so a step's gradients are the same bits on every run.
+card), and on the card the hit record and the shading are autograd
+nodes whose backward kernels sum their table rows the same way, so a
+step's gradients are the same bits on every run.
 
 Where JAX takes a PRNG key, these functions take a uniform source (an
 object with `jitter`, `coin` and `gi`, see `ops.render.TorchUniforms`), and

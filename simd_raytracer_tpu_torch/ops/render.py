@@ -155,8 +155,12 @@ def render_chunk(scene: Scene, geom: Geometry, cfg: RenderConfig,
             break
 
         o_c, d_c, w_c, bg_c = o[alive], d[alive], weight[alive], miss_bg[alive]
-        hit = trace(o_c, d_c, scene, geom, cfg.epsilon, cull=(depth == 0),
-                    intersector=cfg.intersector, accel=accel)
+        # At the depth cutoff only the record's mask is read, which carries
+        # no gradient: its record is made outside autograd.
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not last):
+            hit = trace(o_c, d_c, scene, geom, cfg.epsilon,
+                        cull=(depth == 0), intersector=cfg.intersector,
+                        accel=accel)
         contrib = (w_c * (~hit.mask & bg_c).to(dtype))[:, None] * bg
         if last:
             # Depth cutoff returns the background (render.hpp:138-139).

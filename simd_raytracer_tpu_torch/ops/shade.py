@@ -34,6 +34,7 @@ from torch.autograd.function import once_differentiable
 
 from .. import kernels
 from ..config import RenderConfig
+from ..kernels import data_ptr
 from ..models.scene import (MAT_CONSTANT, MAT_DIFFUSE, MAT_REFLECTIVE,
                             MAT_REFRACTIVE, MAT_TEXTURE, Geometry, Scene,
                             cross3, dot3, safe_normalize)
@@ -424,24 +425,6 @@ class BounceGradArgs(ctypes.Structure):
                    ("n_tex", ctypes.c_int64)])
 
 
-def _rows(t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-          device: torch.device) -> int:
-    """The data pointer of `t` after checking what the kernels take."""
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
-        raise ValueError(f"shade_fused: expected {dtype} {shape} on {device}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"shade_fused: a {tuple(t.shape)} input is not "
-                         f"contiguous")
-    return t.data_ptr()
-
-
-def _stream(device: torch.device) -> int:
-    """The handle of `device`'s current CUDA stream, which every launch
-    takes."""
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 class _Call(NamedTuple):
     """One fused shade call after its occlusion query: `shade`'s arguments,
     the rows that need light, their light-major visibility and the summed
@@ -509,20 +492,22 @@ def _shadow(scene: Scene, geom: Geometry, hit: HitRecord,
     term = torch.empty(pairs, dtype=f32, device=dev)
     lib = kernels.library()
     kernels.check(lib.srt_shade_lights(
-        need.data_ptr(), m, nl, _rows(hit.position, f32, row3, dev),
-        _rows(hit.hit_n, f32, row3, dev), _rows(hit.face_n, f32, row3, dev),
-        _rows(hit.smooth, torch.bool, (n,), dev),
-        _rows(scene.light_pos, f32, (nl, 3), dev),
-        _rows(scene.light_intensity, f32, (nl,), dev),
+        need.data_ptr(), m, nl, data_ptr(hit.position, f32, row3, dev),
+        data_ptr(hit.hit_n, f32, row3, dev),
+        data_ptr(hit.face_n, f32, row3, dev),
+        data_ptr(hit.smooth, torch.bool, (n,), dev),
+        data_ptr(scene.light_pos, f32, (nl, 3), dev),
+        data_ptr(scene.light_intensity, f32, (nl,), dev),
         np.float32(cfg.shadow_bias), np.float32(FOUR_PI),
         shadow_o.data_ptr(), shadow_d.data_ptr(), max_t.data_ptr(),
-        term.data_ptr(), _stream(dev)), "shade_lights")
+        term.data_ptr(), kernels.stream(dev)), "shade_lights")
     profiling.count("shade.launches")
     occ = occluded(shadow_o, shadow_d, max_t, scene, geom, cfg, accel)
     factor = torch.zeros(n, dtype=f32, device=dev)
     kernels.check(lib.srt_shade_factor(
-        need.data_ptr(), m, nl, _rows(occ, torch.bool, (pairs,), dev),
-        term.data_ptr(), factor.data_ptr(), _stream(dev)), "shade_factor")
+        need.data_ptr(), m, nl, data_ptr(occ, torch.bool, (pairs,), dev),
+        term.data_ptr(), factor.data_ptr(), kernels.stream(dev)),
+        "shade_factor")
     profiling.count("shade.launches")
     return occ, factor
 
@@ -566,34 +551,34 @@ def _bounce_args(call: _Call, **outputs) -> BounceArgs:
     row3 = (n, 3)
     x = scene.tex_tag.shape[0]
     return BounceArgs(
-        mask=_rows(hit.mask, torch.bool, (n,), dev),
-        tag=_rows(hit.mat_tag, i32, (n,), dev),
-        weight=_rows(weight, f32, (n,), dev),
-        d_in=_rows(d_in, f32, row3, dev),
-        position=_rows(hit.position, f32, row3, dev),
-        hit_n=_rows(hit.hit_n, f32, row3, dev),
-        face_n=_rows(hit.face_n, f32, row3, dev),
-        smooth=_rows(hit.smooth, torch.bool, (n,), dev),
-        ior=_rows(hit.ior, f32, (n,), dev),
-        albedo=_rows(hit.albedo, f32, row3, dev),
-        tex=_rows(hit.tex, i32, (n,), dev),
-        u=_rows(hit.u, f32, (n,), dev), v=_rows(hit.v, f32, (n,), dev),
-        w=_rows(hit.w, f32, (n,), dev),
-        uvs=_rows(hit.uvs, f32, (n, 3, 2), dev),
+        mask=data_ptr(hit.mask, torch.bool, (n,), dev),
+        tag=data_ptr(hit.mat_tag, i32, (n,), dev),
+        weight=data_ptr(weight, f32, (n,), dev),
+        d_in=data_ptr(d_in, f32, row3, dev),
+        position=data_ptr(hit.position, f32, row3, dev),
+        hit_n=data_ptr(hit.hit_n, f32, row3, dev),
+        face_n=data_ptr(hit.face_n, f32, row3, dev),
+        smooth=data_ptr(hit.smooth, torch.bool, (n,), dev),
+        ior=data_ptr(hit.ior, f32, (n,), dev),
+        albedo=data_ptr(hit.albedo, f32, row3, dev),
+        tex=data_ptr(hit.tex, i32, (n,), dev),
+        u=data_ptr(hit.u, f32, (n,), dev), v=data_ptr(hit.v, f32, (n,), dev),
+        w=data_ptr(hit.w, f32, (n,), dev),
+        uvs=data_ptr(hit.uvs, f32, (n, 3, 2), dev),
         factor=(None if call.factor is None
-                else _rows(call.factor, f32, (n,), dev)),
-        rnd_coin=(_rows(call.rnd_coin, f32, (n,), dev) if roulette
+                else data_ptr(call.factor, f32, (n,), dev)),
+        rnd_coin=(data_ptr(call.rnd_coin, f32, (n,), dev) if roulette
                   else None),
-        rnd_gi=(_rows(call.rnd_gi, f32, (n, gi, 2), dev) if gi > 0
+        rnd_gi=(data_ptr(call.rnd_gi, f32, (n, gi, 2), dev) if gi > 0
                 else None),
-        tex_tag=_rows(scene.tex_tag, i32, (x,), dev),
-        tex_color_a=_rows(scene.tex_color_a, f32, (x, 3), dev),
-        tex_color_b=_rows(scene.tex_color_b, f32, (x, 3), dev),
-        tex_param=_rows(scene.tex_param, f32, (x,), dev),
-        tex_offset=_rows(scene.tex_offset, i32, (x,), dev),
-        tex_width=_rows(scene.tex_width, i32, (x,), dev),
-        tex_height=_rows(scene.tex_height, i32, (x,), dev),
-        atlas=_rows(scene.atlas, f32, (scene.atlas.shape[0], 3), dev),
+        tex_tag=data_ptr(scene.tex_tag, i32, (x,), dev),
+        tex_color_a=data_ptr(scene.tex_color_a, f32, (x, 3), dev),
+        tex_color_b=data_ptr(scene.tex_color_b, f32, (x, 3), dev),
+        tex_param=data_ptr(scene.tex_param, f32, (x,), dev),
+        tex_offset=data_ptr(scene.tex_offset, i32, (x,), dev),
+        tex_width=data_ptr(scene.tex_width, i32, (x,), dev),
+        tex_height=data_ptr(scene.tex_height, i32, (x,), dev),
+        atlas=data_ptr(scene.atlas, f32, (scene.atlas.shape[0], 3), dev),
         n=n, atlas_rows=scene.atlas.shape[0], gi=gi, k=k,
         roulette=int(roulette),
         # Python scalars as torch rounds them: a double to float; a
@@ -622,7 +607,7 @@ def _bounce(call: _Call) -> Tuple[torch.Tensor, Tuple]:
     if n:
         args = _bounce_args(call, **out)
         kernels.check(kernels.library().srt_shade_bounce(
-            ctypes.byref(args), _stream(dev)), "shade_bounce")
+            ctypes.byref(args), kernels.stream(dev)), "shade_bounce")
         profiling.count("shade.launches")
     return out["contrib"], (out["child_o"], out["child_d"], out["child_w"],
                             out["child_bg"])
@@ -660,7 +645,7 @@ def _bounce_grad(call: _Call, grads, wanted) -> list:
                                       (n * k,))):
         if g is not None:
             bufs[f"g_{name}"] = g = g.contiguous()
-            _rows(g, f32, shape, dev)
+            data_ptr(g, f32, shape, dev)
     for name in _ROW_GRADS:
         bufs[f"g_{name}"] = torch.empty(
             (n,) if name in ("ior", "weight") else row3, dtype=f32,
@@ -678,7 +663,8 @@ def _bounce_grad(call: _Call, grads, wanted) -> list:
                           **{key: t.data_ptr() for key, t in bufs.items()})
     lib = kernels.library()
     kernels.check(lib.srt_shade_bounce_grad(ctypes.byref(args),
-                                            _stream(dev)), "shade_bounce_grad")
+                                            kernels.stream(dev)),
+                  "shade_bounce_grad")
     profiling.count("shade.backward.launches")
     result = {name: bufs[f"g_{name}"] for name in _ROW_GRADS}
     result["rnd_gi"] = bufs.get("g_rnd_gi")
@@ -691,19 +677,20 @@ def _bounce_grad(call: _Call, grads, wanted) -> list:
             bufs["light_grad"] = torch.empty((nl * m, 4), dtype=f32,
                                              device=dev)
         kernels.check(lib.srt_shade_lights_grad(
-            call.need.data_ptr(), m, nl, _rows(hit.position, f32, row3, dev),
-            _rows(hit.hit_n, f32, row3, dev),
-            _rows(hit.face_n, f32, row3, dev),
-            _rows(hit.smooth, torch.bool, (n,), dev),
-            _rows(scene.light_pos, f32, (nl, 3), dev),
-            _rows(scene.light_intensity, f32, (nl,), dev),
-            _rows(call.occ, torch.bool, (nl * m,), dev),
+            call.need.data_ptr(), m, nl,
+            data_ptr(hit.position, f32, row3, dev),
+            data_ptr(hit.hit_n, f32, row3, dev),
+            data_ptr(hit.face_n, f32, row3, dev),
+            data_ptr(hit.smooth, torch.bool, (n,), dev),
+            data_ptr(scene.light_pos, f32, (nl, 3), dev),
+            data_ptr(scene.light_intensity, f32, (nl,), dev),
+            data_ptr(call.occ, torch.bool, (nl * m,), dev),
             bufs["g_factor"].data_ptr(), np.float32(FOUR_PI),
             *(bufs[key].data_ptr() for key in ("g_position", "g_hit_n",
                                                "g_face_n")),
             *(bufs[key].data_ptr() if key in bufs else None
               for key in ("light_key", "light_grad")),
-            _stream(dev)), "shade_lights_grad")
+            kernels.stream(dev)), "shade_lights_grad")
         profiling.count("shade.backward.launches")
         if "light_key" in bufs:
             sums = row_sums(bufs["light_key"], bufs["light_grad"], nl,

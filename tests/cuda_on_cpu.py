@@ -1,13 +1,15 @@
-"""The shading kernels (csrc/shade.cu, csrc/shade_grad.cu) built for the
-CPU with g++, so that CPU tests run their arithmetic without a card.
+"""The shading kernels (csrc/shade.cu, csrc/shade_grad.cu) and the hit
+record's (csrc/trace.cu) built for the CPU with g++, so that CPU tests run
+their arithmetic without a card.
 
 The sources compile as C++ against a stand-in `cuda_runtime.h` that
 defines the CUDA qualifiers away and holds each thread's block and thread
 index, and every `kernel<<<grid, block, ...>>>(args)` launch becomes loops
 over the grid's blocks and threads, run one after another.  That is sound
 for kernels whose threads share nothing (no shared memory, barriers or
-atomics), as the shading kernels'.  The pointers are the CPU tensors'
-own; the stream is ignored.  glibc's cosf and sinf may round otherwise
+atomics), as these kernels'.  A read through the read-only cache
+(`__ldg`) is a plain read.  The pointers are the CPU tensors' own; the
+stream is ignored.  glibc's cosf and sinf may round otherwise
 than torch's CPU kernels, so GI directions may differ by an ulp from the
 plain version's.
 """
@@ -22,7 +24,7 @@ import subprocess
 
 from simd_raytracer_tpu_torch import kernels
 
-SOURCES = ("shade.cu", "shade_grad.cu")
+SOURCES = ("shade.cu", "shade_grad.cu", "trace.cu")
 HEADERS = ("shade.cuh",)
 
 RUNTIME = """#pragma once
@@ -33,6 +35,7 @@ using std::isnan;
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(n)
+#define __ldg(p) (*(p))
 typedef void* cudaStream_t;
 struct SrtIndex { unsigned x, y, z; };
 static thread_local SrtIndex blockIdx, threadIdx;
@@ -72,12 +75,12 @@ def unlaunch(src: str) -> str:
 
 
 def build(out_dir: str) -> ctypes.CDLL:
-    """Compile the shading kernels for the CPU into `out_dir` and load
-    them, bound as `kernels.library()` binds them."""
+    """Compile the shading and record kernels for the CPU into `out_dir`
+    and load them, bound as `kernels.library()` binds them."""
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the CPU build of the shading "
-                           "kernels needs it")
+        raise RuntimeError("g++ not found: the CPU build of the kernels "
+                           "needs it")
     with open(os.path.join(out_dir, "cuda_runtime.h"), "w") as f:
         f.write(RUNTIME)
     for name in HEADERS:
@@ -89,10 +92,11 @@ def build(out_dir: str) -> ctypes.CDLL:
         objs.append(os.path.join(out_dir, name + ".cpp"))
         with open(objs[-1], "w") as f:
             f.write(src)
-    lib = os.path.join(out_dir, "libshade_cpu.so")
+    lib = os.path.join(out_dir, "libkernels_cpu.so")
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
                     "-shared", "-I", out_dir, "-o", lib, *objs],
                    check=True, capture_output=True, text=True)
     cdll = ctypes.CDLL(lib)
     kernels.bind_shade(cdll)
+    kernels.bind_trace(cdll)
     return cdll

@@ -31,7 +31,8 @@ from simd_raytracer_tpu_torch.ops.shade import occluded
 from simd_raytracer_tpu_torch.utils import profiling
 from torch_scenes import (SeededUniforms, bitmap_scene_kwargs, grid_doc,
                           mixed_doc, shade_rows)
-from yardstick import gradient_gaps, shade_grads
+from yardstick import (RECORD_LEAVES, gradient_gaps, record_case,
+                       record_grads, shade_grads)
 
 pytestmark = pytest.mark.cuda
 
@@ -1002,6 +1003,138 @@ def test_train_steps_through_the_refitted_sweep_kernel(scene, monkeypatch):
     for k in G.DIFF_PARAM_NAMES:
         assert torch.equal(p0[k], p1[k]), k
     assert not torch.equal(p0["vertices"], s.vertices)
+
+
+# ---- the hit record: csrc/trace.cu against the plain torch version ---------
+
+def same_record(got, ref) -> list:
+    """The fields of two hit records whose dtype, shape or bits differ."""
+    from simd_raytracer_tpu_torch.ops import intersect as I
+    out = []
+    for field in ("mask", "idx", *I._GRAD_FIELDS, *I._INT_FIELDS):
+        a, b = getattr(got, field), getattr(ref, field)
+        if a.dtype == torch.float32 and b.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            out.append(field)
+    return out
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("intersector", ["jnp", "sweep", "fast", "kdtree",
+                                         "mxu"])
+def test_trace_record_is_the_plain_record_bitwise(scene, intersector, cull):
+    """Through every intersector, the record `trace` makes on the card
+    (csrc/trace.cu, one launch) is the plain version's from the same
+    winners, bit for bit, on hits and misses."""
+    from simd_raytracer_tpu_torch.ops.intersect import (record_reference,
+                                                        trace)
+    s, g, _ = scene
+    cfg = T.RenderConfig(intersector=intersector)
+    accel = build_accel(s.to("cpu"), cfg)
+    accel = None if accel is None else accel.to(DEV)
+    o, d, _ = rays(s.cam_pos, 3000, seed=31)
+    with profiling.recording() as rec:
+        got = trace(o, d, s, g, EPS, cull, intersector=intersector,
+                    accel=accel)
+    assert rec.counts["trace.fused.calls"] == 1
+    assert rec.counts["trace.fused.rows"] == 3000
+    assert rec.counts["trace.launches"] == 1
+    assert rec.counts["trace.plain.calls"] == 0
+    assert 0 < int(got.mask.sum()) < 3000
+    assert same_record(got, record_reference(o, d, got.idx, got.mask, s, g,
+                                             EPS)) == []
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_trace_record_kernels_at_the_determinant_clamp(card, cull):
+    """The four-texture scene's rays with their winners, and rays along a
+    triangle's edge whose refine clamps its determinant, flagged as hits
+    and as misses: the record is the plain version's bit for bit, and the
+    backward's gradients of o, d and every table are within the float64
+    yardstick of the plain version's (one backward call: its kernel and
+    two segmented sums of two launches)."""
+    from simd_raytracer_tpu_torch.models.scene import build_scene
+    from simd_raytracer_tpu_torch.ops import intersect as I
+    scene = build_scene(**bitmap_scene_kwargs(32, 32)).to(DEV)
+    geom, o, d, idx, hit = record_case(scene, cull, n=3000, seed=cull)
+    ref = I.record_reference(o, d, idx, hit, scene, geom, EPS)
+    assert same_record(I.record_fused(o, d, idx, hit, scene, geom, EPS),
+                       ref) == []
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    outs = [torch.randn(getattr(ref, k).shape, generator=gen, device=DEV)
+            for k in I._GRAD_FIELDS]
+    args = (scene, geom, o, d, idx, hit)
+    with profiling.recording() as rec:
+        vals, got = record_grads(I.record_fused, *args, outs)
+    assert rec.counts["trace.fused.grad_calls"] == 1
+    assert rec.counts["trace.backward.calls"] == 1
+    assert rec.counts["trace.backward.launches"] == 5
+    assert rec.counts["gather.backward.calls"] == 0
+    plain_vals, plain = record_grads(I.record_reference, *args, outs)
+    assert same_record(vals, plain_vals) == []
+    _, exact = record_grads(I.record_reference, *args, outs, torch.float64)
+    for leaf, (gap, allowed) in zip(RECORD_LEAVES,
+                                    gradient_gaps(got, plain, exact)):
+        assert gap <= allowed, (leaf, gap, allowed)
+
+
+def test_trace_refuses_float64_on_the_card(scene):
+    """csrc/trace.cu takes float32: a float64 trace on the card is refused,
+    not recorded by another path."""
+    from simd_raytracer_tpu_torch.ops.intersect import trace
+    s, g, _ = scene
+    o, d, _ = rays(s.cam_pos, 64, seed=3)
+    with pytest.raises(ValueError, match="float32"):
+        trace(o.double(), d.double(), s, g, EPS, True)
+
+
+def test_training_traces_through_the_record_node(scene, monkeypatch):
+    """An SGD step on the card (roulette, GI, the brute-force select, as
+    the train cell): every trace call but the depth cutoff's runs the
+    record as the autograd node, and each of those has one backward; no
+    gather's backward comes from trace (the step makes those of a step
+    whose plain record gathers by plain indexing); the loss is the plain
+    record's step's bit for bit, and every gradient is within the float64
+    yardstick of it (the same step on the CPU in float64)."""
+    from simd_raytracer_tpu_torch.ops import intersect as I
+    s, _, _ = scene
+    cfg = T.RenderConfig(max_ray_depth=3, samples_per_pixel=2,
+                         bounce_mode="roulette", intersector="jnp",
+                         diffuse_reflection_ray_count=1)
+    n = 48 * 48 * 2
+
+    def step(sc, dev=DEV):
+        params, skeleton = G.split_params(sc)
+        with profiling.recording() as rec:
+            out = G.loss_and_grad(
+                params, skeleton, cfg, torch.arange(n, device=dev),
+                torch.full((n, 3), 0.1, dtype=sc.vertices.dtype, device=dev),
+                SeededUniforms(8, 0))
+        return out, rec
+
+    (loss, grads), rec = step(s)
+    calls = rec.spans["trace"][0]
+    grad_calls = rec.counts["trace.fused.grad_calls"]
+    assert rec.counts["trace.fused.calls"] == calls == grad_calls + 1
+    assert rec.counts["trace.backward.calls"] == grad_calls > 0
+    assert rec.counts["trace.plain.calls"] == 0
+    monkeypatch.setattr(I, "record_applies", lambda o: False)
+    (loss_p, grads_p), plain = step(s)
+    with monkeypatch.context() as patch:
+        patch.setattr(I, "gather_rows", lambda table, idx: table[idx])
+        _, indexed = step(s)
+    assert (rec.counts["gather.backward.calls"]
+            == indexed.counts["gather.backward.calls"]
+            < plain.counts["gather.backward.calls"])
+    assert torch.equal(loss, loss_p)
+    (_, grads_64), _ = step(s.to("cpu").map(
+        lambda t: t.double() if t.is_floating_point() else t), "cpu")
+    names = G.DIFF_PARAM_NAMES
+    for k, (gap, allowed) in zip(names, gradient_gaps(
+            [grads[k] for k in names], [grads_p[k] for k in names],
+            [grads_64[k] for k in names])):
+        assert gap <= allowed, (k, gap, allowed)
 
 
 # ---- shading: csrc/shade.cu against the plain torch version ----------------

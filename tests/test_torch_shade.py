@@ -54,7 +54,7 @@ def cpu_kernels(monkeypatch, cpu_library):
     """The shading kernels' CPU build as `kernels.library()`, launched on
     CPU tensors (no stream)."""
     monkeypatch.setattr(kernels, "library", lambda: cpu_library)
-    monkeypatch.setattr(S, "_stream", lambda device: None)
+    monkeypatch.setattr(kernels, "stream", lambda device: None)
 
 
 def assert_near_plain(got, plain, exact, names=None):

@@ -1,9 +1,17 @@
 """The float64 yardstick that holds a hand-written backward to the plain
-version's gradients (the CPU and card tests, `chip_smoke.py`), and the
-one shade call with every float input requiring grad that they all
-differentiate."""
+version's gradients (the CPU and card tests, `chip_smoke.py`), the one
+shade call with every float input requiring grad that they all
+differentiate, and the hit records (ops/intersect.py) they differentiate
+likewise."""
 
+import numpy as np
 import torch
+
+EPS = 1e-6
+# The leaves of a record call, in `ops/intersect.py::_RecordGrad`'s input
+# order: o, d, then `_grad_tables`.
+RECORD_LEAVES = ("o", "d", "v0", "e1", "e2", "vn", "face_n", "uv",
+                 "mat_albedo", "mat_ior")
 
 
 def shade_loss(fn, args, outs, dtype=torch.float32):
@@ -75,3 +83,63 @@ def gradient_gaps(got, plain, exact) -> list:
 
         out.append((gap(g), 2.0 * gap(p) + 1e-6 * float(e.abs().max())))
     return out
+
+
+def record_case(scene, cull, n=400, seed=0):
+    """(geom, o, d, idx, hit) on `scene`'s device: `n` random rays around
+    the camera with the brute-force select's winners, then one ray a
+    triangle for eight valid triangles, running along the triangle's
+    first edge a little off its plane, with that triangle as its winner:
+    the refine's determinant is below eps there and clamps (the first
+    four flagged as hits, the rest as misses)."""
+    import simd_raytracer_tpu_torch as T
+    from simd_raytracer_tpu_torch.ops import intersect as I
+    geom = T.derive_geometry(scene)
+    rng = np.random.default_rng(seed)
+    o = scene.cam_pos.cpu().numpy() + rng.normal(scale=2.0, size=(n, 3))
+    d = rng.normal(size=(n, 3))
+    d[:, 1] -= 0.5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.tensor(x, dtype=torch.float32,
+                         device=geom.v0.device) for x in (o, d))
+    idx, hit = I.mt_select(o, d, geom.v0, geom.e1, geom.e2, EPS, cull,
+                           geom.tri_valid)
+    tri = geom.tri_valid.nonzero()[1:9, 0]
+    d_par = geom.e1[tri] / geom.e1[tri].norm(dim=1, keepdim=True)
+    o_par = geom.v0[tri] + 0.5 * geom.face_n[tri] - d_par
+    flags = torch.arange(len(tri), device=tri.device) < 4
+    return (geom, torch.cat([o, o_par]), torch.cat([d, d_par]),
+            torch.cat([idx, tri.int()]), torch.cat([hit, flags]))
+
+
+def record_loss(fn, scene, geom, o, d, idx, hit, outs, dtype=torch.float32,
+                eps=EPS):
+    """One record call `fn(o, d, idx, hit, scene, geom, eps)` (a record
+    function of ops/intersect.py) in `dtype`, with o, d and every table of
+    `_grad_tables` a fresh leaf requiring grad -> (record, the loss
+    sum(field * g) over the float fields with `outs` as the g (a field
+    whose g is None is left out), the leaves in RECORD_LEAVES order)."""
+    from simd_raytracer_tpu_torch.ops import intersect as I
+
+    def leaf(t):
+        return t.detach().to(dtype).clone().requires_grad_()
+
+    leaves = [leaf(o), leaf(d)] + [leaf(t) for t in
+                                   I._grad_tables(scene, geom)]
+    n_tri = len(I._TRI_TABLES)
+    g = geom.replace(**{k: t for (k, _), t in zip(I._TRI_TABLES,
+                                                  leaves[2:2 + n_tri])})
+    s = scene.replace(**{k: t for (k, _), t in zip(I._MAT_TABLES,
+                                                   leaves[2 + n_tri:])})
+    record = fn(leaves[0], leaves[1], idx, hit, s, g, eps)
+    loss = sum((getattr(record, k) * out.to(dtype)).sum()
+               for k, out in zip(I._GRAD_FIELDS, outs) if out is not None)
+    return record, loss, leaves
+
+
+def record_grads(fn, scene, geom, o, d, idx, hit, outs,
+                 dtype=torch.float32, eps=EPS):
+    """(record, gradients of every leaf) of `record_loss`'s call."""
+    record, loss, leaves = record_loss(fn, scene, geom, o, d, idx, hit, outs,
+                                       dtype, eps)
+    return record, leaf_grads(loss, leaves)
