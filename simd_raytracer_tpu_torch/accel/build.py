@@ -14,6 +14,11 @@ array for array (reference kd_tree_simd.hpp:146-185):
 
 The C++ builder in `native/kdtree.cpp` (bound by `..native`) gives the same
 arrays; this NumPy version is its fallback and its oracle.
+
+Built as it is, the tree's boxes stay those of the build while an SGD step
+moves the vertices, as JAX's do.  A tree marked `refit`
+(RenderConfig.accel_refit) is refitted by `refit_kdtree` to each frame's or
+step's vertices where its select is bound.
 """
 
 from __future__ import annotations
@@ -43,9 +48,19 @@ class KdTree(TensorStruct):
     child1: torch.Tensor      # (N,) int32, -1 for leaves
     leaf_id: torch.Tensor     # (N,) int32 row of leaf_tris, -1 for inner
     leaf_tris: torch.Tensor   # (L, CAP) int32 triangle ids, -1 padding
+    # The refit's plan, taken from the topology where the tree is made
+    # (_refit_plan), so that refit_kdtree reads no size from the device:
+    # the node of each leaf, and the inner nodes level by level from the
+    # deepest, level_sizes[k] of them in the k-th level.
+    leaf_node: torch.Tensor   # (L,) int64
+    inner_order: torch.Tensor  # (I,) int64
     # The built tree's depth (root = 0): traversal sizes its per-ray stack
     # from it and refuses a tree too deep for that stack.
     depth: int = DEFAULT_MAX_DEPTH
+    level_sizes: Tuple[int, ...] = ()
+    # Refit the boxes to each binding's vertices (refit_kdtree); False
+    # keeps the boxes of the build.
+    refit: bool = False
 
     @property
     def num_nodes(self) -> int:
@@ -56,32 +71,119 @@ class KdTree(TensorStruct):
         return int(self.leaf_tris.shape[1])
 
 
+def _inner_levels(child0: np.ndarray, child1: np.ndarray) -> list:
+    """The inner nodes of the flattened tree level by level from the
+    root, one array a level."""
+    c0, c1 = np.asarray(child0), np.asarray(child1)
+    levels = []
+    frontier = np.array([0], np.int64) if len(c0) else np.zeros(0, np.int64)
+    while len(frontier):
+        inner = frontier[c0[frontier] >= 0]
+        if len(inner):
+            levels.append(inner)
+        frontier = np.concatenate([c0[inner], c1[inner]]).astype(np.int64)
+    return levels
+
+
 def tree_depth(child0: np.ndarray, child1: np.ndarray) -> int:
-    """Depth of the flattened tree (root = depth 0), level by level."""
-    c0 = np.asarray(child0)
-    c1 = np.asarray(child1)
-    depth = 0
-    frontier = np.array([0], np.int32) if len(c0) else np.array([], np.int32)
-    while True:
-        kids = np.concatenate([c0[frontier], c1[frontier]])
-        kids = kids[kids >= 0]
-        if len(kids) == 0:
-            return depth
-        depth += 1
-        frontier = kids
+    """Depth of the flattened tree (root = depth 0): its levels of inner
+    nodes."""
+    return len(_inner_levels(child0, child1))
+
+
+def _refit_plan(child0: np.ndarray, child1: np.ndarray,
+               leaf_id: np.ndarray, num_leaves: int):
+    """The order refit_kdtree fills a tree's boxes in -> (leaf_node (L,),
+    inner_order (I,), level_sizes): the node of each leaf row, and the
+    inner nodes level by level from the deepest, with each level's
+    count."""
+    levels = _inner_levels(child0, child1)[::-1]
+    leaf_id = np.asarray(leaf_id)
+    leaf_node = np.zeros(num_leaves, np.int64)
+    nodes = np.flatnonzero(leaf_id >= 0)
+    leaf_node[leaf_id[nodes]] = nodes
+    order = np.concatenate(levels) if levels else np.zeros(0, np.int64)
+    return leaf_node, order, tuple(len(level) for level in levels)
 
 
 def kdtree_from_arrays(arrays, device="cpu") -> KdTree:
     """KdTree from NumPy arrays named like its fields (for instance a JAX
-    KdTree's fields through np.asarray); depth from the topology."""
+    KdTree's fields through np.asarray); depth and the refit's plan from
+    the topology."""
     fields = {name: torch.from_numpy(np.array(arrays[name])).to(device)
               for name in KDTREE_FIELDS}
     for name in ("node_min", "node_max"):
         fields[name] = fields[name].float()
     for name in ("child0", "child1", "leaf_id", "leaf_tris"):
         fields[name] = fields[name].to(torch.int32)
-    return KdTree(**fields, depth=tree_depth(np.asarray(arrays["child0"]),
-                                             np.asarray(arrays["child1"])))
+    leaf_node, order, sizes = _refit_plan(
+        arrays["child0"], arrays["child1"], arrays["leaf_id"],
+        fields["leaf_tris"].shape[0])
+    return KdTree(**fields, leaf_node=torch.from_numpy(leaf_node).to(device),
+                  inner_order=torch.from_numpy(order).to(device),
+                  depth=len(sizes), level_sizes=sizes)
+
+
+def _float32_outward(lo: torch.Tensor, hi: torch.Tensor):
+    """lo and hi in float32, each rounded away from the box where the
+    cast moved it inward, so the float32 box holds the wider one."""
+    lo32, hi32 = lo.float(), hi.float()
+    if lo.dtype != torch.float32:
+        lo32 = torch.where(lo32.to(lo.dtype) > lo,
+                           torch.nextafter(lo32, lo32.new_tensor(-np.inf)),
+                           lo32)
+        hi32 = torch.where(hi32.to(hi.dtype) < hi,
+                           torch.nextafter(hi32, hi32.new_tensor(np.inf)),
+                           hi32)
+    return lo32, hi32
+
+
+def refit_kdtree(tree: KdTree, vertices: torch.Tensor,
+                 tri_vidx: torch.Tensor) -> KdTree:
+    """The same tree over moved vertices: every node keeps its children,
+    leaf_id and leaf_tris; a leaf's box becomes the min and max of its
+    listed triangles' current corners (in float32, rounded outward where
+    the vertices are wider), and an inner node's the union of its
+    children's, level by level from the deepest.  An empty leaf enters
+    the unions as the inverted (+inf, -inf), which adds nothing, and is
+    then given the point box (+inf, +inf), which every slab test rejects:
+    an axis the ray goes down gives t_far = -inf < t_near, and otherwise
+    t_near = inf lies past any best t (BIG at most).  Torch ops on the
+    tree's device, with no host sync.
+
+    Why the walk stays exact (accel/traverse.py, csrc/kd_select.cu): a
+    hit point lies on its triangle, so inside the triangle's box, so
+    inside the box of every leaf that lists the triangle and of each of
+    that leaf's ancestors; a box the ray enters at t_near holds no point
+    of the ray before t_near, so t_near <= the hit's t.  Until the winner
+    is tested a ray's best t is at least the winner's t, so the prune
+    (t_near <= best_t, inclusive) keeps every node on the way to a leaf
+    that lists the winner, and to a leaf that lists a triangle tied with
+    it: the walk tests them all and keeps the lowest id on a tie, as the
+    brute-force select does.  Only the order of visits changes (the near
+    child is read from the boxes), and with it the cost; no walk visits
+    an empty leaf, which lists no winner."""
+    ids = tree.leaf_tris.long()
+    pad = (ids < 0)[..., None]                                # (L, CAP, 1)
+    corners = vertices.detach()[tri_vidx.long()[ids.clamp_min(0)]]
+    lo = torch.where(pad, np.inf, corners.amin(dim=2)).amin(dim=1)
+    hi = torch.where(pad, -np.inf, corners.amax(dim=2)).amax(dim=1)
+    lo, hi = _float32_outward(lo, hi)
+    # Each box as (min, -max), so that a union is one elementwise minimum.
+    box = torch.full((tree.num_nodes, 6), np.inf, dtype=torch.float32,
+                     device=ids.device)
+    box[tree.leaf_node] = torch.cat([lo, -hi], dim=1)
+    c0, c1 = tree.child0.long(), tree.child1.long()
+    start = 0
+    for size in tree.level_sizes:
+        nodes = tree.inner_order[start:start + size]
+        start += size
+        box[nodes] = torch.minimum(box[c0[nodes]], box[c1[nodes]])
+    box[tree.leaf_node] = torch.where(
+        pad.all(dim=1), box.new_tensor([np.inf] * 3 + [-np.inf] * 3),
+        box[tree.leaf_node])
+    return tree.replace(node_min=box[:, :3].contiguous(),
+                        node_max=(-box[:, 3:]).contiguous())
 
 
 def _split_box(bmin: np.ndarray, bmax: np.ndarray, axis: int

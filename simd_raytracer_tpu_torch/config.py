@@ -8,9 +8,9 @@ the eager PyTorch render compacts exactly with `nonzero` whatever they say.
 
 One field is the port's alone: `accel_refit`.  JAX's train steps keep the
 accelerator built from the starting scene, and so does the port by
-default, bit for bit; with `accel_refit` the port refits the sweep's slices
-to each frame's or step's vertices.  Like the refused negative epsilon, it
-is a deliberate difference from JAX.
+default, bit for bit; with `accel_refit` the port refits the sweep's slices,
+or the kd tree's boxes, to each frame's or step's vertices.  Like the
+refused negative epsilon, it is a deliberate difference from JAX.
 """
 
 from __future__ import annotations
@@ -59,9 +59,11 @@ class RenderConfig:
     # the sweep and linear otherwise.
     ray_order: str = "auto"
     bounce_skip: bool = True
-    # With "sweep": every select of a frame or train step runs on slices
-    # refitted to that frame's or step's vertices (the same members, their
-    # current triangles and boxes); False keeps the build's slices.
+    # With "sweep" or "kdtree": every select of a frame or train step runs
+    # on the accelerator refitted to that frame's or step's vertices (the
+    # sweep's slices keep their members and get their current triangles and
+    # boxes, the kd tree its topology and boxes over its leaves' current
+    # triangles); False keeps the build's.
     accel_refit: bool = False
 
     def __post_init__(self):
@@ -74,11 +76,10 @@ class RenderConfig:
             raise ValueError(f"bad bounce_mode {self.bounce_mode!r}")
         if self.ray_order not in ("auto", "linear", "tiled"):
             raise ValueError(f"bad ray_order {self.ray_order!r}")
-        if self.accel_refit and self.intersector != "sweep":
+        if self.accel_refit and self.intersector not in ("sweep", "kdtree"):
             raise ValueError(
-                f"accel_refit refits the sweep; intersector "
-                f"{self.intersector!r} has no refit (the kd tree is not "
-                f"refitted)")
+                f"accel_refit refits the sweep or the kd tree; intersector "
+                f"{self.intersector!r} walks no accelerator to refit")
 
     @property
     def child_slots(self) -> int:

@@ -15,12 +15,15 @@ step's gradients are the same bits on every run.
 Where JAX takes a PRNG key, these functions take a uniform source (an
 object with `jitter`, `coin` and `gi`, see `ops.render.TorchUniforms`), and
 `train_steps` a callable step -> source: step i uses source i, as JAX's
-step i uses split(key, n_steps)[i].  With intersector="sweep", pass the
-accel built from the starting scene (`ops/render.py::build_accel`).  By
-default its slices stay frozen across steps, as JAX's do: the select tests
-the starting triangles and only the refine sees the moved ones.  With
-cfg.accel_refit each step's select runs on slices refitted to that step's
-vertices, so its winners are those of the step's own triangles.
+step i uses split(key, n_steps)[i].  With intersector="sweep" or "kdtree",
+pass the accel built from the starting scene (`ops/render.py::
+build_accel`).  By default it stays frozen across steps, as JAX's does:
+the sweep's select tests the starting triangles and only the refine sees
+the moved ones; the kd walk tests the moved triangles but prunes by the
+build's boxes, which a moved triangle may have left.  With cfg.accel_refit
+each step's select runs on the sweep's slices or the kd tree's boxes
+refitted to that step's vertices, so its winners are those of the step's
+own triangles.
 """
 
 from __future__ import annotations

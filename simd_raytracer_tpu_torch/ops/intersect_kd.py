@@ -9,7 +9,8 @@ idx 0 on a miss.  It reads the node records from device memory, so it
 walks a tree of any size the stack allows.  It takes no window:
 `kd_window_select` emulates t_max and any-hit around it, as the JAX
 package does, and `bind` binds it to the pack of a tree and a frame's
-geometry.
+geometry, refitting the tree's boxes to that geometry first where the
+tree is marked `refit`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from ..accel.build import KdTree
+from ..accel.build import KdTree, refit_kdtree
 from ..accel.traverse import check_depth, kd_select
 from ..models.scene import TensorStruct
 from ..utils import profiling
@@ -158,10 +159,20 @@ def kd_window_select(o, d, v0, e1, e2, eps, cull, tri_mask=None,
 
 def bind(tree: KdTree, geom):
     """The kd select on `tree`, bound to pack_kd of the tree and `geom`'s
-    triangles when geom is given."""
+    triangles when geom is given.  Where `tree.refit` asks for it, the
+    tree's boxes are first refitted to geom's vertices: once a binding,
+    span `refit`, with counters `kd.refit.calls` and `kd.refit.nodes`."""
     if tree is None:
         raise ValueError("intersector='kdtree' needs an accel: build one "
                          "with accel.build.build_kdtree_for_scene")
+    if tree.refit:
+        if geom is None:
+            raise ValueError("a refitted kd tree needs the geometry of the "
+                             "frame or step")
+        with profiling.span("refit"):
+            tree = refit_kdtree(tree, geom.vertices, geom.tri_vidx)
+        profiling.count("kd.refit.calls")
+        profiling.count("kd.refit.nodes", tree.num_nodes)
     pack = None if geom is None else pack_kd(tree, geom.v0, geom.e1,
                                              geom.e2)
     return functools.partial(kd_window_select, tree=tree, pack=pack)

@@ -246,8 +246,8 @@ def build_accel(scene: Scene, cfg: RenderConfig):
     """The accelerator cfg.intersector needs, built from the scene on the
     host (CPU tensors): a KdTree for "kdtree" (the reference builds its
     kd_tree_simd_accel once per run, src/main.cpp:41), SweepData for
-    "sweep", None otherwise; with cfg.accel_refit the sweep is marked to
-    be refitted to each frame's or step's vertices.  Timed as the set-up
+    "sweep", None otherwise; with cfg.accel_refit either is marked to be
+    refitted to each frame's or step's vertices.  Timed as the set-up
     phase `accel_build`."""
     if not needs_accel(cfg):
         return None

@@ -18,7 +18,8 @@ import torch
 
 import simd_raytracer_tpu_torch as T
 from simd_raytracer_tpu_torch import kernels
-from simd_raytracer_tpu_torch.accel.build import build_kdtree_for_scene
+from simd_raytracer_tpu_torch.accel.build import (build_kdtree_for_scene,
+                                                  refit_kdtree)
 from simd_raytracer_tpu_torch.accel.sweep import R_TILE, build_sweep_for_scene
 from simd_raytracer_tpu_torch.accel.traverse import kd_select, kd_work_pairs
 from simd_raytracer_tpu_torch.ops import grad as G
@@ -538,6 +539,41 @@ def test_kd_kernel_on_a_tree_larger_than_shared_memory(deep_tree, shuffled,
     assert counter.tolist()[2] == kd_work_pairs(*args)
 
 
+def moved_mirror(s):
+    """The scene with its mirror sphere (mesh 2 of mixed_doc) moved up,
+    left and toward the camera, out of the leaf cells that list it."""
+    vid = s.tri_vidx[s.tri_mesh == 2].long().unique()
+    v = s.vertices.clone()
+    v[vid] += torch.tensor([-1.5, 1.5, 3.0], device=v.device)
+    return s.replace(vertices=v)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_kd_kernel_on_a_refitted_tree_matches_plain_and_brute(scene, kdtree,
+                                                              cull):
+    """After the mirror sphere moves: the refit on the card gives the
+    CPU's boxes, the kd kernel on them equals the plain walk and the
+    brute-force kernel, and on the build's boxes it loses winners."""
+    s, _, _ = scene
+    m = moved_mirror(s)
+    g = T.derive_geometry(m)
+    tree = refit_kdtree(kdtree, m.vertices, m.tri_vidx)
+    on_cpu = refit_kdtree(kdtree.to("cpu"), m.vertices.cpu(),
+                          m.tri_vidx.cpu())
+    assert torch.equal(tree.node_min.cpu(), on_cpu.node_min)
+    assert torch.equal(tree.node_max.cpu(), on_cpu.node_max)
+    o, d, _ = rays(s.cam_pos, 3000, seed=14)
+    args = (o, d, g.v0, g.e1, g.e2, EPS, cull, g.tri_valid)
+    got = intersect_kd.kd_select_cuda(*args, tree)
+    assert_equal(got, kd_select(*args, tree))
+    brute = intersect_brute.mt_select_brute(*args)
+    assert torch.equal(got[1], brute[1])
+    assert torch.equal(got[0][got[1]], brute[0][brute[1]])
+    frozen = intersect_kd.kd_select_cuda(*args, kdtree)
+    assert not (torch.equal(frozen[1], brute[1])
+                and torch.equal(frozen[0][frozen[1]], brute[0][brute[1]]))
+
+
 @pytest.mark.parametrize("intersector", ["sweep", "kdtree"])
 def test_cuda_renders_are_bitwise_reproducible(scene, intersector):
     """Two CUDA renders of one frame at spp 4 (roulette, depth 3) are
@@ -1003,6 +1039,56 @@ def test_train_steps_through_the_refitted_sweep_kernel(scene, monkeypatch):
     for k in G.DIFF_PARAM_NAMES:
         assert torch.equal(p0[k], p1[k]), k
     assert not torch.equal(p0["vertices"], s.vertices)
+
+
+def test_train_steps_through_the_refitted_kd_kernel(scene, kdtree,
+                                                   monkeypatch):
+    """Three SGD steps with split bounces at a large rate through the kd
+    kernel with accel_refit, from the scene with the mirror sphere moved
+    and the tree built before the move: every select of every step has
+    the mt_select kernel's winners and hit flags on that step's own
+    triangles, one refit a step, and the losses and parameters are the
+    brute-force route's on the card."""
+    s, _, _ = scene
+    m = moved_mirror(s)
+    n = 48 * 48
+    calls = []
+    inner = intersect_kd.bind
+
+    def bind(tree, geom):
+        select = inner(tree, geom)
+        brute = intersect_brute.bind(None, geom)
+
+        def both(*args, **kwargs):
+            got = select(*args, **kwargs)
+            calls.append((got, brute(*args, **kwargs)))
+            return got
+        return both
+
+    def steps(**render):
+        cfg = T.RenderConfig(max_ray_depth=5, **render)
+        params, skeleton = G.split_params(m)
+        accel = None if cfg.intersector == "jnp" else kdtree.replace(
+            refit=cfg.accel_refit)
+        return G.train_steps(params, skeleton, cfg,
+                             torch.arange(n, device=DEV),
+                             torch.full((n, 3), 0.1, device=DEV),
+                             lambda i: SeededUniforms(9, i), lr=0.2,
+                             n_steps=3, accel=accel)
+
+    want_p, want_l = steps()
+    monkeypatch.setattr(intersect_kd, "bind", bind)
+    with profiling.recording() as rec:
+        got_p, got_l = steps(intersector="kdtree", accel_refit=True)
+    assert rec.counts["kd.refit.calls"] == 3
+    assert rec.counts["select.launches.kd"] > 0
+    assert len(calls) > 9
+    for (idx, hit), (want_i, want_h) in calls:
+        assert torch.equal(hit, want_h)
+        assert torch.equal(idx[hit], want_i[hit])
+    assert torch.equal(got_l, want_l)
+    for k in G.DIFF_PARAM_NAMES:
+        assert torch.equal(got_p[k], want_p[k]), k
 
 
 # ---- the hit record: csrc/trace.cu against the plain torch version ---------

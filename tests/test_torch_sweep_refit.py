@@ -171,8 +171,7 @@ def test_train_steps_through_the_refitted_sweep_equal_brute_force(scene):
                            want_p["vertices"].numpy(), rtol=1e-6, atol=1e-9)
 
 
-@pytest.mark.parametrize("intersector",
-                         ["jnp", "pallas", "fast", "mxu", "kdtree"])
+@pytest.mark.parametrize("intersector", ["jnp", "pallas", "fast", "mxu"])
 def test_accel_refit_with_another_intersector_is_refused(intersector):
     with pytest.raises(ValueError, match="refit"):
         T.RenderConfig(accel_refit=True, intersector=intersector)
